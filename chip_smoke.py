@@ -16,16 +16,25 @@ last line, which is printed only when every phase passed:
               at 0.5% errors sampled from every 16th genome.
   4. kernels  one full batch of real reads (B=32768, W=160): each kernel
               against its plain PyTorch version, bit for bit (tolerance 0),
-              with times (kernels: median device time per launch from
+              K4 at tau 0.8 and 1.0 (where it must also equal K3), with
+              times (kernels: median device time per launch from
               torch.profiler, with L2 flushed before each launch and warm;
-              plain versions: CUDA events) and bounds.
-  5. e2e      QueryEngine.pseudoalign_file on the card over every read:
-              a warm-up, five timed runs to /dev/null (median and spread),
-              each with the launch counts reset just before it, a profiled
-              run for the card's busy share, then a run to a file checked
-              against the exact host mirror (lookup_host_exact + set
-              intersection) for every redone read and a seeded sample of
-              2,000 others.
+              plain versions: CUDA events) and bounds; then K4 and K5 on
+              4,096 of the batch's reads against a seeded random dense
+              matrix of 4,546 colours (the reference's Salmonella width).
+  5. e2e      on the card over every read, each path with the launch counts
+              reset just before each timed run and checked just after:
+              FI pseudoalign_file (a warm-up, five timed runs to /dev/null,
+              median and spread, a profiled run for the card's busy share,
+              a run to a file); TU pseudoalign_file at tau 0.8 (a warm-up,
+              three timed runs, a profiled run, an ascii and a binary run to
+              files, which must hold the same records); kmer_matches_file (a
+              warm-up, three timed runs, a run to a file).
+  6. mirror   the exact host mirror (lookup_host_exact) in spawned workers,
+              once for every read any path redid and a seeded sample of
+              2,000 others: the FI lists, the TU(0.8) lists and the
+              kmer-matches positivity and counts derived from its csids
+              must equal the three output files.
 
 The line before the last is one JSON object of per-kernel numbers; the
 last is {"ok": true, "device": {...}}.
@@ -56,7 +65,9 @@ from fulgor_tpu_torch.io.simulate import (
 from fulgor_tpu_torch.native import lib as native
 from fulgor_tpu_torch.ops import kernels
 from fulgor_tpu_torch.ops.hostpack import pack_reads_host
-from fulgor_tpu_torch.ops.intersect import fi_and, fi_and_plain
+from fulgor_tpu_torch.ops.intersect import (
+    fi_and, fi_and_plain, km_scores, km_scores_plain, tu_mask, tu_mask_plain,
+)
 from fulgor_tpu_torch.ops.minidict2 import lookup_host_exact
 from fulgor_tpu_torch.ops.prep import PREP_FIELDS, window_prep, window_prep_plain
 from fulgor_tpu_torch.ops.probe import minidict2_probe, minidict2_probe_plain
@@ -76,7 +87,16 @@ READ_LEN, WIDTH, BATCH = 150, 160, 32768
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12
 REPS_KERNEL, REPS_PLAIN = 20, 3
-E2E_PASSES = 5
+E2E_PASSES, TU_PASSES, KM_PASSES = 5, 3, 3
+TAU = 0.8
+# the reference's Salmonella index: 4,546 genomes (C32 = 143)
+WIDE_C, WIDE_READS = 4546, 4096
+# the kernels each path must launch (and, for TU, must not)
+PATH_KERNELS = {
+    "fi": (("window_prep", "minidict2_probe", "fi_and"), ()),
+    "tu": (("window_prep", "minidict2_probe", "tu_mask"), ("fi_and",)),
+    "km": (("window_prep", "minidict2_probe", "km_scores"), ()),
+}
 
 
 def log(msg):
@@ -208,7 +228,7 @@ def phase_index(tmp, genomes, num_reads, seed):
         f"{idx.num_colors} colours, {idx.num_unitigs} unitigs; "
         f"{num_reads} reads of {READ_LEN} bp from {len(paths[::16])} genomes "
         f"({time.perf_counter() - t2:.1f} s)")
-    return idx, codes, reads
+    return idx, codes, names, reads
 
 
 def kernel_times(fn, name, flush):
@@ -313,7 +333,57 @@ def phase_kernels(idx, eng, codes):
         bytes=bytes3, ops=lanes * C32))
     log(f"[kernels] fi_and: {int(got.ne(0).any(dim=1).sum())} of {BATCH} "
         f"reads non-empty, {distinct} distinct colour sets in the batch")
+    fi_bits = got
+
+    # K4 at tau 0.8 and 1.0, K5: each reads hit/csid once, one bit row per
+    # distinct csid of the batch, and does one multiply-add per run of
+    # equal csids and colour (the runs of this batch, counted here)
+    C = idx.num_colors
+    runs = count_runs(hit, csid)
+    errs4 = []
+    for tau in (TAU, 1.0):
+        tab = eng._minscore_tab(tau, Wk)
+        got = tu_mask(eng.bits, hit, csid, tab, C)
+        want = tu_mask_plain(eng.bits, hit, csid, tab, C)
+        torch.cuda.synchronize()
+        errs4.append(max_abs_err((got,), (want,)))
+        log(f"[kernels] tu_mask at tau {tau}: "
+            f"{int(got.ne(0).any(dim=1).sum())} of {BATCH} reads map, "
+            f"max_abs_err {errs4[-1]}")
+    if not torch.equal(got, fi_bits):
+        raise RuntimeError("tu_mask at tau 1.0 differs from fi_and")
+    log("[kernels] tu_mask at tau 1.0 equals fi_and on the same hit/csid")
+    tab = eng._minscore_tab(TAU, Wk)
+    ms4, warm4 = kernel_times(
+        lambda: tu_mask(eng.bits, hit, csid, tab, C), "tu_mask", flush)
+    rows.append(dict(
+        name="tu_mask", source="fulgor_tpu_torch/csrc/union.cu",
+        replaces="fulgor_tpu/ops/intersect.py:106", max_abs_err=max(errs4),
+        ms=ms4, warm_ms=warm4,
+        plain_ms=time_ms(lambda: tu_mask_plain(eng.bits, hit, csid, tab, C),
+                         REPS_PLAIN),
+        bytes=lanes * 5 + distinct * C32 * 4 + (Wk + 1) * 4
+        + BATCH * C32 * 4, ops=runs * C32 * 32 + BATCH * C32 * 32))
+    got = km_scores(eng.bits, hit, csid, C)
+    want = km_scores_plain(eng.bits, hit, csid, C)
+    torch.cuda.synchronize()
+    err5 = max_abs_err(got, want)
+    ms5, warm5 = kernel_times(lambda: km_scores(eng.bits, hit, csid, C),
+                              "km_scores", flush)
+    rows.append(dict(
+        name="km_scores", source="fulgor_tpu_torch/csrc/union.cu",
+        replaces="fulgor_tpu/ops/pipeline.py:363", max_abs_err=err5,
+        ms=ms5, warm_ms=warm5,
+        plain_ms=time_ms(lambda: km_scores_plain(eng.bits, hit, csid, C),
+                         REPS_PLAIN),
+        bytes=lanes * 5 + distinct * C32 * 4 + BATCH * C * 2
+        + BATCH * ((Wk + 31) // 32) * 4, ops=runs * C))
+    log(f"[kernels] tu_mask/km_scores: {runs} runs of equal csids in the "
+        f"batch ({runs / BATCH:.2f} a read), {C} colours")
     del flush
+    errs_wide = phase_wide_c(eng, hit, csid)
+    rows[-2]["max_abs_err"] = max(rows[-2]["max_abs_err"], errs_wide[0])
+    rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"], errs_wide[1])
 
     for r in rows:
         b_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -327,6 +397,57 @@ def phase_kernels(idx, eng, codes):
         if r["max_abs_err"] != 0:
             raise RuntimeError(f"{r['name']} disagrees with its plain version")
     return rows
+
+
+def count_runs(hit, csid) -> int:
+    """Runs of consecutive positive windows with equal csid in a batch."""
+    cont = torch.zeros_like(hit)
+    cont[:, 1:] = hit[:, :-1] & (csid[:, 1:] == csid[:, :-1])
+    return int((hit & ~cont).sum())
+
+
+def phase_wide_c(eng, hit, csid):
+    """K4 (tau 0.8 and 1.0) and K5 against their plain versions on
+    WIDE_READS of the batch's reads and a seeded random dense matrix of
+    WIDE_C colours: several colour tiles a block and a ragged last word
+    (random pad bits included, which K4 must not pass on).
+    -> (K4 max_abs_err, K5 max_abs_err)."""
+    dev = eng.device
+    S = eng.bits.shape[0]
+    C32 = (WIDE_C + 31) // 32
+    g = torch.Generator(device=dev).manual_seed(WIDE_C)
+
+    def rnd(n):
+        return torch.randint(-(1 << 31), 1 << 31, (n, C32), dtype=torch.int32,
+                             device=dev, generator=g)
+
+    dense = rnd(S)
+    lo, hi = S // 3, 2 * S // 3
+    dense[lo:hi] &= rnd(hi - lo) & rnd(hi - lo)  # sparser rows
+    dense[: S // 8] = -1  # core rows hold every colour
+    h = hit[:WIDE_READS].contiguous()
+    c = csid[:WIDE_READS].contiguous()
+    Wk = h.shape[1]
+    err4 = 0
+    for tau in (TAU, 1.0):
+        tab = eng._minscore_tab(tau, Wk)
+        got = tu_mask(dense, h, c, tab, WIDE_C)
+        want = tu_mask_plain(dense, h, c, tab, WIDE_C)
+        torch.cuda.synchronize()
+        err4 = max(err4, max_abs_err((got,), (want,)))
+        log(f"[kernels] wide C: tu_mask at tau {tau}, {WIDE_READS} reads x "
+            f"{WIDE_C} colours: {int(got.ne(0).any(dim=1).sum())} reads map, "
+            f"max_abs_err {err4}")
+    got = km_scores(dense, h, c, WIDE_C)
+    want = km_scores_plain(dense, h, c, WIDE_C)
+    torch.cuda.synchronize()
+    err5 = max_abs_err(got, want)
+    log(f"[kernels] wide C: km_scores, {WIDE_READS} reads x {WIDE_C} "
+        f"colours: max score {int(got[1].max())}, max_abs_err {err5}")
+    if err4 or err5:
+        raise RuntimeError("tu_mask or km_scores disagrees with its plain "
+                           f"version at {WIDE_C} colours")
+    return err4, err5
 
 
 def device_busy(fn):
@@ -369,62 +490,174 @@ def _mirror_init(index_path, codes_path):
 
 
 def _host_mirror(q):
-    """FI colours of read q by the exact host mirror: lookup_host_exact
-    over every window, then the intersection of the decoded colour sets."""
-    _hit, csid = lookup_host_exact(_MIRROR["d"],
-                                   np.asarray(_MIRROR["codes"][q]))
-    return _MIRROR["eng"]._fi_from_csids(csid)
+    """Read q by the exact host mirror: lookup_host_exact over every
+    window, then from its csids the FI colours (intersection of the decoded
+    colour sets), the TU(TAU) colours and the kmer-matches counts (each
+    positive window adds one to every colour of its set)."""
+    pos, csid = lookup_host_exact(_MIRROR["d"],
+                                  np.asarray(_MIRROR["codes"][q]))
+    eng = _MIRROR["eng"]
+    cat, offs = eng._cs_cache
+    counts = np.zeros(eng.idx.num_colors, dtype=np.int64)
+    for sid in csid[pos]:
+        counts[cat[offs[sid]: offs[sid + 1]].astype(np.int64)] += 1
+    npos = int(pos.sum())
+    tu = (np.flatnonzero(counts >= int(npos * TAU)).astype(np.uint32)
+          if npos else np.empty(0, np.uint32))
+    return eng._fi_from_csids(csid), tu, pos, counts
 
 
-def phase_e2e(idx, eng, codes, reads, tmp, seed):
-    eng.pseudoalign_file(reads, os.devnull)  # warm-up
+def timed_passes(path, fn, passes):
+    """Run fn() `passes` times, the launch counts reset just before each
+    run and checked just after against PATH_KERNELS[path]. -> (reads/s of
+    each run, the last run's stats, its launches)."""
+    need, forbid = PATH_KERNELS[path]
     rates = []
-    for i in range(E2E_PASSES):
+    for i in range(passes):
         kernels.reset_launches()
-        st = eng.pseudoalign_file(reads, os.devnull)
+        st = fn()
         launches = dict(kernels.launches)
         rates.append(st["num_reads"] / st["elapsed"])
-        log(f"[e2e] pass {i + 1}: {st['num_reads']} reads in "
+        log(f"[{path}] pass {i + 1}: {st['num_reads']} reads in "
             f"{st['elapsed']:.3f} s: {rates[-1]:.1f} reads/s; parse "
             f"{st['parse_sec']:.3f} s, query {st['query_sec']:.3f} s, redo "
             f"{st['redo_sec']:.3f} s, write {st['write_sec']:.3f} s; "
-            f"{st['num_redo']} reads redone; {st['num_mapped']} mapped; "
-            f"launches {launches}")
-        if st["num_reads"] != len(codes):
-            raise RuntimeError("the engine did not read every read")
-        missing = [k for k, v in launches.items() if v <= 0]
-        if missing:
-            raise RuntimeError(
-                f"kernels not launched on the main path: {missing}")
+            f"{st['num_redo']} reads redone ({st['num_redo_host']} on the "
+            f"host); {st.get('num_mapped', '-')} mapped; launches {launches}")
+        missing = [k for k in need if launches[k] <= 0]
+        extra = [k for k in forbid if launches[k] > 0]
+        if missing or extra:
+            raise RuntimeError(f"{path} path: kernels not launched {missing}, "
+                               f"launched and not expected {extra}")
     rate = statistics.median(rates)
-    log(f"[e2e] {E2E_PASSES} timed passes: median {rate:.1f} reads/s, "
+    log(f"[{path}] {passes} timed passes: median {rate:.1f} reads/s, "
         f"min {min(rates):.1f}, max {max(rates):.1f} "
         f"(spread {(max(rates) - min(rates)) / rate:.4f} of the median)")
-    wall, busy, per_kernel = device_busy(
-        lambda: eng.pseudoalign_file(reads, os.devnull))
+    return rates, st, launches
+
+
+def profiled_pass(path, fn):
+    wall, busy, per_kernel = device_busy(fn)
     if busy is None:
-        log("[e2e] card busy share: not measured (the profiler recorded no "
-            "device activity)")
+        log(f"[{path}] card busy share: not measured (the profiler recorded "
+            "no device activity)")
     else:
-        log(f"[e2e] profiled run: {wall:.3f} s wall, card busy "
+        log(f"[{path}] profiled run: {wall:.3f} s wall, card busy "
             f"{busy * 1e3:.2f} ms (kernels and copies), idle share "
             f"{1 - busy / wall:.4f}; per kernel (launches, device ms) "
             f"{per_kernel}")
 
-    out = os.path.join(tmp, "psa.tsv")
-    st2 = eng.pseudoalign_file(reads, out)
+
+def read_binary_psa(path):
+    """-> (qids, offs, cat) of a binary pseudoalignment file."""
+    buf = np.fromfile(path, dtype=np.uint32)
+    qids, offs, spans = [], [0], []
+    pos = 0
+    while pos < len(buf):
+        n = int(buf[pos + 1])
+        qids.append(buf[pos])
+        spans.append((pos + 2, pos + 2 + n))
+        offs.append(offs[-1] + n)
+        pos += 2 + n
+    cat = (np.concatenate([buf[a:b] for a, b in spans]) if spans
+           else np.empty(0, np.uint32))
+    return (np.array(qids, dtype=np.uint32), np.array(offs, dtype=np.int64),
+            cat)
+
+
+def ascii_records(path, want):
+    """qid -> colours of the ascii records whose qid is in `want`."""
     recs = {}
-    with open(out) as f:
+    with open(path) as f:
         for ln in f:
-            parts = ln.rstrip("\n").split("\t")
-            recs[int(parts[0])] = np.array(parts[2:], dtype=np.uint32)
-    if len(recs) != len(codes):
-        raise RuntimeError(f"{len(recs)} records for {len(codes)} reads")
-    rng = np.random.default_rng(seed)
-    redone = sorted(set(st2["redo_ids"]))
-    sample = rng.choice(len(codes), size=min(2000, len(codes)), replace=False)
-    check = sorted(set(redone) | set(sample.tolist()))
+            q = int(ln[: ln.index("\t")])
+            if q in want:
+                recs[q] = np.array(ln.rstrip("\n").split("\t")[2:],
+                                   dtype=np.uint32)
+    return recs
+
+
+def phase_fi(eng, reads, tmp):
+    def fn(out=os.devnull):
+        return eng.pseudoalign_file(reads, out)
+
+    fn()  # warm-up
+    rates, _st, launches = timed_passes("fi", fn, E2E_PASSES)
+    profiled_pass("fi", fn)
+    out = os.path.join(tmp, "psa.tsv")
+    st = fn(out)
+    return dict(out=out, redo=st["redo_ids"], launches=launches,
+                rate=statistics.median(rates))
+
+
+def phase_tu(eng, reads, tmp):
+    def fn(out=os.devnull, fmt="ascii"):
+        return eng.pseudoalign_file(reads, out, threshold=TAU, fmt=fmt)
+
+    fn()  # warm-up
+    rates, _st, launches = timed_passes("tu", fn, TU_PASSES)
+    profiled_pass("tu", fn)
+    out_a = os.path.join(tmp, "tu.tsv")
+    out_b = os.path.join(tmp, "tu.bin")
+    st_a = fn(out_a)
+    st_b = fn(out_b, "binary")
     t0 = time.perf_counter()
+    qids, offs, cat = read_binary_psa(out_b)
+    with open(out_a, "rb") as f:
+        same = f.read() == native.format_psa_ascii(qids, cat, offs)
+    if not same:  # same records in another order?
+        rec_b = {int(q): cat[offs[i]: offs[i + 1]] for i, q in enumerate(qids)}
+        rec_a = ascii_records(out_a, set(rec_b))
+        same = len(rec_a) == len(rec_b) and all(
+            np.array_equal(rec_a[q], v) for q, v in rec_b.items())
+    log(f"[tu] ascii and binary outputs: {len(qids)} records, the same "
+        f"records: {same} ({time.perf_counter() - t0:.1f} s)")
+    if not same:
+        raise RuntimeError("the TU ascii and binary outputs differ")
+    return dict(out=(qids, offs, cat), redo=st_a["redo_ids"] + st_b["redo_ids"],
+                launches=launches, rate=statistics.median(rates))
+
+
+def phase_km(eng, reads, tmp):
+    def fn(out=os.devnull):
+        return eng.kmer_matches_file(reads, out)
+
+    fn()  # warm-up
+    rates, _st, launches = timed_passes("km", fn, KM_PASSES)
+    out = os.path.join(tmp, "km.tsv")
+    st = fn(out)
+    log(f"[km] output file: {os.path.getsize(out) / 1e6:.1f} MB")
+    return dict(out=out, redo=st["redo_ids"], launches=launches,
+                rate=statistics.median(rates))
+
+
+def phase_mirror(idx, codes, names, tmp, seed, fi, tu, km):
+    """Every read any path redid and a seeded sample of 2,000 others: the
+    three output files against the exact host mirror."""
+    rng = np.random.default_rng(seed)
+    redone = set(fi["redo"]) | set(tu["redo"]) | set(km["redo"])
+    sample = rng.choice(len(codes), size=min(2000, len(codes)), replace=False)
+    check = sorted(redone | set(sample.tolist()))
+    want_set = set(check)
+    t0 = time.perf_counter()
+    fi_recs = ascii_records(fi["out"], want_set)
+    qids, offs, cat = tu["out"]
+    tu_recs = {int(q): cat[offs[i]: offs[i + 1]] for i, q in enumerate(qids)
+               if int(q) in want_set}
+    km_lines = {}
+    with open(km["out"]) as f:
+        header = f.readline().rstrip("\n")
+        nlines = 0
+        for q, ln in enumerate(f):
+            nlines += 1
+            if q in want_set:
+                km_lines[q] = ln.rstrip("\n").split("\t")
+    if header != f"num_colors={idx.num_colors}" or nlines != len(codes):
+        raise RuntimeError(f"kmer-matches output: header {header!r}, "
+                           f"{nlines} lines for {len(codes)} reads")
+    if len(fi_recs) != len(check) or len(tu_recs) != len(check):
+        raise RuntimeError("a checked read has no FI or TU record")
+    t1 = time.perf_counter()
     # the per-read exact mirror is a Python loop (~25 ms a read): spread it
     # over the host's cores, in spawned workers that load the saved index
     index_path = os.path.join(tmp, "smoke.tfur")
@@ -435,14 +668,26 @@ def phase_e2e(idx, eng, codes, reads, tmp, seed):
             os.cpu_count(), initializer=_mirror_init,
             initargs=(index_path, codes_path)) as pool:
         wants = pool.map(_host_mirror, check, chunksize=64)
-    bad = [q for q, want in zip(check, wants)
-           if not np.array_equal(recs[q], want)]
-    log(f"[e2e] output file checked against the exact host mirror: "
-        f"{len(redone)} redone + {len(check) - len(redone)} sampled reads, "
-        f"{len(bad)} differ ({time.perf_counter() - t0:.1f} s)")
-    if bad:
-        raise RuntimeError(f"reads {bad[:10]} differ from the host mirror")
-    return st, launches, rate
+    bad = {"fi": [], "tu": [], "km": []}
+    Wk = READ_LEN - K + 1
+    for q, (fi_w, tu_w, hit_w, counts_w) in zip(check, wants):
+        if not np.array_equal(fi_recs[q], fi_w):
+            bad["fi"].append(q)
+        if not np.array_equal(tu_recs[q], tu_w):
+            bad["tu"].append(q)
+        f = km_lines[q]
+        if (f[0] != names[q] or f[1] != str(Wk)
+                or f[2: 2 + Wk] != [str(int(h)) for h in hit_w]
+                or f[2 + Wk:] != [str(c) for c in counts_w]):
+            bad["km"].append(q)
+    log(f"[mirror] {len(redone)} redone + {len(check) - len(redone)} sampled "
+        f"reads against the exact host mirror: FI {len(bad['fi'])}, "
+        f"TU({TAU}) {len(bad['tu'])}, kmer-matches {len(bad['km'])} differ "
+        f"(files read in {t1 - t0:.1f} s, mirror "
+        f"{time.perf_counter() - t1:.1f} s)")
+    if any(bad.values()):
+        raise RuntimeError(f"reads differ from the host mirror: "
+                           f"{ {k: v[:10] for k, v in bad.items()} }")
 
 
 def main():
@@ -456,23 +701,29 @@ def main():
     phase_build()
     tmp = tempfile.mkdtemp(prefix="fulgor_smoke_")
     try:
-        idx, codes, reads = phase_index(tmp, args.genomes, args.reads,
-                                        args.seed)
+        idx, codes, names, reads = phase_index(tmp, args.genomes, args.reads,
+                                               args.seed)
         eng = QueryEngine(idx)
         log(f"[index] covered fraction {eng._covered_frac:.4f} -> probe "
             f"budget {eng._pb}, redo budget {eng._pb_redo}")
         rows = phase_kernels(idx, eng, codes)
-        _st, launches, rate = phase_e2e(idx, eng, codes, reads, tmp,
-                                        args.seed)
+        fi = phase_fi(eng, reads, tmp)
+        tu = phase_tu(eng, reads, tmp)
+        km = phase_km(eng, reads, tmp)
+        phase_mirror(idx, codes, names, tmp, args.seed, fi, tu, km)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    log(f"[done] {time.perf_counter() - t_start:.1f} s in all; "
-        f"{rate:.1f} reads/s end to end on {card}")
+    log(f"[done] {time.perf_counter() - t_start:.1f} s in all; end to end "
+        f"on {card}: FI {fi['rate']:.1f}, TU({TAU}) {tu['rate']:.1f}, "
+        f"kmer-matches {km['rate']:.1f} reads/s (medians)")
+    # each kernel's launches on its own path's last timed run
+    path_of = {"tu_mask": tu, "km_scores": km}
     out = []
     for r in rows:
         out.append(dict(
             name=r["name"], route="cuda", source=r["source"],
-            replaces=r["replaces"], launches=launches[r["name"]],
+            replaces=r["replaces"],
+            launches=path_of.get(r["name"], fi)["launches"][r["name"]],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None))
     print(json.dumps({"kernels": out}))

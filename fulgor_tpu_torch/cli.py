@@ -1,9 +1,11 @@
-"""fulgor-tpu-torch command line: `build` and `pseudoalign` (full
-intersection), with the flags of fulgor_tpu's cli (reference
-tools/fulgor.cpp). Queries run on the card unless --device says otherwise.
+"""fulgor-tpu-torch command line: `build`, `pseudoalign` (full
+intersection, or threshold union with -r) and `kmer-matches`, with the
+flags of fulgor_tpu's cli (reference tools/fulgor.cpp). Queries run on the
+card unless --device says otherwise.
 
     python -m fulgor_tpu_torch.cli build -l list.txt -o idx [-k 31 -m 19]
-    python -m fulgor_tpu_torch.cli pseudoalign -i idx.tfur -q reads.fq -o out
+    python -m fulgor_tpu_torch.cli pseudoalign -i idx.tfur -q reads.fq -o out [-r 0.8]
+    python -m fulgor_tpu_torch.cli kmer-matches -i idx.tfur -q reads.fq -o out
 """
 
 from __future__ import annotations
@@ -60,7 +62,18 @@ def cmd_pseudoalign(args):
     idx = Index.load(args.index_filename)
     eng = QueryEngine(idx, batch_size=args.batch_size, device=args.device)
     eng.pseudoalign_file(args.query_filename, args.output_filename,
-                         fmt=args.format, verbose=args.verbose)
+                         threshold=args.threshold, fmt=args.format,
+                         verbose=args.verbose)
+    return 0
+
+
+def cmd_kmer_matches(args):
+    from .query.engine import QueryEngine
+
+    idx = Index.load(args.index_filename)
+    eng = QueryEngine(idx, batch_size=args.batch_size, device=args.device)
+    eng.kmer_matches_file(args.query_filename, args.output_filename,
+                          verbose=args.verbose)
     return 0
 
 
@@ -89,23 +102,37 @@ def main(argv=None):
                    help="overwrite an existing output index")
     b.set_defaults(fn=cmd_build)
 
-    q = sub.add_parser("pseudoalign",
-                       help="pseudoalign reads (full intersection)")
-    q.add_argument("-i", dest="index_filename", required=True)
-    q.add_argument("-q", dest="query_filename", required=True)
-    q.add_argument("-o", dest="output_filename", required=True)
-    q.add_argument("-t", dest="threads", type=int, default=0,
-                   help="cap host threads (0 = all cores)")
-    q.add_argument("--batch-size", dest="batch_size", type=int, default=32768)
+    def add_query_args(q):
+        q.add_argument("-i", dest="index_filename", required=True)
+        q.add_argument("-q", dest="query_filename", required=True)
+        q.add_argument("-o", dest="output_filename", required=True)
+        q.add_argument("-t", dest="threads", type=int, default=0,
+                       help="cap host threads (0 = all cores)")
+        q.add_argument("--batch-size", dest="batch_size", type=int,
+                       default=32768)
+        q.add_argument("--device", dest="device", default=None,
+                       help="torch device (default: cuda; 'cpu' runs the "
+                            "plain PyTorch versions of the kernels)")
+        q.add_argument("--verbose", action="store_true")
+
+    q = sub.add_parser("pseudoalign", help="pseudoalign reads")
+    add_query_args(q)
+    q.add_argument("-r", dest="threshold", type=float, default=None,
+                   help="threshold-union threshold in (0.0, 1.0]")
     q.add_argument("--format", dest="format", default="ascii",
                    choices=["ascii", "binary", "compressed"])
-    q.add_argument("--device", dest="device", default=None,
-                   help="torch device (default: cuda; 'cpu' runs the plain "
-                        "PyTorch versions of the kernels)")
-    q.add_argument("--verbose", action="store_true")
     q.set_defaults(fn=cmd_pseudoalign)
 
+    km = sub.add_parser("kmer-matches",
+                        help="per read: window positivity and per-colour "
+                             "match counts")
+    add_query_args(km)
+    km.set_defaults(fn=cmd_kmer_matches)
+
     args = p.parse_args(argv)
+    if (getattr(args, "threshold", None) is not None
+            and not 0.0 < args.threshold <= 1.0):
+        p.error("threshold must be a float in (0.0, 1.0]")
     _apply_thread_cap(getattr(args, "threads", 0))
     return args.fn(args)
 

@@ -1,16 +1,25 @@
-"""Full intersection of the colour-set bit rows (kernel K3).
+"""Colour stage of the query steps: full intersection (kernel K3) and
+threshold-union scores (kernels K4 and K5).
 
-Counterpart of fulgor_tpu/ops/intersect.py full_intersection_windows, its
-one-hot twin full_intersection_onehot and its runs twin compact_runs ->
-full_intersection_runs: all three compute the AND of the dense bit rows of
-every positive window of a read, with an unmapped read (no positive
-window) all-zero. AND is idempotent, so the kernel skips a window whose
-csid equals the last one it ANDed — the in-kernel form of compact_runs,
-exact with no run budget and no overflow.
+K3 `fi_and` is the counterpart of fulgor_tpu/ops/intersect.py
+full_intersection_windows, its one-hot twin full_intersection_onehot and
+its runs twin compact_runs -> full_intersection_runs: all three compute the
+AND of the dense bit rows of every positive window of a read, with an
+unmapped read (no positive window) all-zero. AND is idempotent, so the
+kernel skips a window whose csid equals the last one it ANDed — the
+in-kernel form of compact_runs, exact with no run budget and no overflow.
 
-dense (S, C32), csid (B, Wk) int32 bit patterns, hit (B, Wk) bool ->
-(B, C32) int32 bit patterns. `fi_and` launches csrc/intersect.cu for CUDA
-tensors and runs the plain version for CPU tensors.
+K4 `tu_mask` and K5 `km_scores` replace threshold_union_scores_windows,
+_onehot and _runs: score[b, c] = the number of positive windows of read b
+whose colour set holds colour c (every positive window counts, repeats
+included). K4 thresholds the scores on the card against a host-made
+min-score table, as query_tu_lists_packed does, and packs the mask in
+pack_bool_bits' layout; K5 returns the scores as int16 with the windows'
+positivity bits, as query_kmer_matches_packed2 does.
+
+dense (S, C32), csid (B, Wk) int32 bit patterns, hit (B, Wk) bool. Each
+wrapper launches its csrc/ kernel for CUDA tensors and runs the plain
+version for CPU tensors; it never falls back.
 """
 
 from __future__ import annotations
@@ -18,6 +27,10 @@ from __future__ import annotations
 import torch
 
 from . import kernels
+from .u32 import i32
+
+# the kernels stage one read's windows in shared memory
+MAX_WK = 1024
 
 
 def fi_and_plain(dense, hit, csid):
@@ -57,3 +70,116 @@ def fi_and(dense, hit, csid):
     kernels.check(rc, "fi_and")
     kernels.launches["fi_and"] += 1
     return out
+
+
+def pack_bits(mask, words: int):
+    """(B, n) bool -> (B, words) int32 bit patterns in pack_bool_bits'
+    layout (bit i of a row is bit i & 31 of word i >> 5); bits past n are
+    0."""
+    B, n = mask.shape
+    full = torch.zeros((B, words * 32), dtype=torch.int64, device=mask.device)
+    full[:, :n] = mask
+    shifts = torch.arange(32, dtype=torch.int64, device=mask.device)
+    return i32((full.view(B, words, 32) << shifts).sum(dim=2))
+
+
+def tu_scores_plain(dense, hit, csid, num_colors: int):
+    """Plain PyTorch threshold-union scores (any device): per window one
+    row gather, unpacked to bits and added where the window is positive.
+    -> (B, num_colors) int32."""
+    B, Wk = hit.shape
+    C32 = dense.shape[1]
+    safe = torch.where(hit, csid.to(torch.int64) & 0xFFFFFFFF, 0)
+    shifts = torch.arange(32, dtype=torch.int32, device=dense.device)
+    acc = torch.zeros((B, C32 * 32), dtype=torch.int32, device=dense.device)
+    for w in range(Wk):
+        bits = (dense[safe[:, w]][:, :, None] >> shifts) & 1
+        acc += bits.reshape(B, C32 * 32) * hit[:, w, None]
+    return acc[:, :num_colors]
+
+
+def tu_mask_plain(dense, hit, csid, minscore, num_colors: int):
+    """Plain threshold-union mask: score >= minscore[npos] and npos > 0,
+    packed to (B, C32) int32 bit patterns with the pad bits 0."""
+    scores = tu_scores_plain(dense, hit, csid, num_colors)
+    npos = hit.sum(dim=1)
+    need = minscore.to(torch.int64)[npos]
+    mask = (scores >= need[:, None]) & (npos > 0)[:, None]
+    return pack_bits(mask, dense.shape[1])
+
+
+def km_scores_plain(dense, hit, csid, num_colors: int):
+    """Plain kmer-matches step: (hitw (B, ceil(Wk/32)) int32 bit patterns
+    of the windows' positivity, scores (B, num_colors) int16)."""
+    Wk = hit.shape[1]
+    scores = tu_scores_plain(dense, hit, csid, num_colors)
+    return pack_bits(hit, (Wk + 31) // 32), scores.to(torch.int16)
+
+
+def _check_colour_inputs(name, dense, hit, csid, num_colors):
+    B, Wk = hit.shape
+    if (dense.dtype != torch.int32 or csid.dtype != torch.int32
+            or hit.dtype != torch.bool or tuple(csid.shape) != (B, Wk)
+            or hit.device != dense.device or csid.device != dense.device
+            or not (dense.is_contiguous() and hit.is_contiguous()
+                    and csid.is_contiguous())):
+        raise ValueError(f"{name}: dense (S, C32) int32, hit (B, Wk) bool and "
+                         "csid (B, Wk) int32, contiguous on one device")
+    if not (0 < num_colors <= 32 * dense.shape[1] and 0 < Wk <= MAX_WK):
+        raise ValueError(f"{name}: needs 0 < num_colors <= 32 * C32 and "
+                         f"0 < Wk <= {MAX_WK}")
+
+
+def tu_mask(dense, hit, csid, minscore, num_colors: int):
+    """Threshold-union mask of each read -> (B, C32) int32 bit patterns:
+    colour c is set iff npos > 0 and at least minscore[npos] positive
+    windows hold c (npos = the read's positive windows; minscore is the
+    (Wk + 1,) int32 table of floor(npos * tau), made on the host)."""
+    if dense.device.type == "cpu":
+        return tu_mask_plain(dense, hit, csid, minscore, num_colors)
+    if dense.device.type != "cuda":
+        raise ValueError(f"tu_mask: unsupported device {dense.device}")
+    _check_colour_inputs("tu_mask", dense, hit, csid, num_colors)
+    B, Wk = hit.shape
+    if (minscore.dtype != torch.int32 or tuple(minscore.shape) != (Wk + 1,)
+            or minscore.device != dense.device
+            or not minscore.is_contiguous()):
+        raise ValueError("tu_mask: minscore must be a contiguous (Wk + 1,) "
+                         "int32 tensor on the tables' device")
+    C32 = dense.shape[1]
+    out = torch.empty((B, C32), dtype=torch.int32, device=dense.device)
+    if B == 0:
+        return out
+    lib = kernels.library()
+    rc = lib.fulgor_tu_mask(dense.data_ptr(), C32, num_colors, hit.data_ptr(),
+                            csid.data_ptr(), B, Wk, minscore.data_ptr(),
+                            out.data_ptr(), kernels.stream_of(dense))
+    kernels.check(rc, "tu_mask")
+    kernels.launches["tu_mask"] += 1
+    return out
+
+
+def km_scores(dense, hit, csid, num_colors: int):
+    """kmer-matches colour stage -> (hitw (B, ceil(Wk/32)) int32 bit
+    patterns, scores (B, num_colors) int16: positive windows holding each
+    colour, at most Wk <= 1024)."""
+    if dense.device.type == "cpu":
+        return km_scores_plain(dense, hit, csid, num_colors)
+    if dense.device.type != "cuda":
+        raise ValueError(f"km_scores: unsupported device {dense.device}")
+    _check_colour_inputs("km_scores", dense, hit, csid, num_colors)
+    B, Wk = hit.shape
+    hitw = torch.empty((B, (Wk + 31) // 32), dtype=torch.int32,
+                       device=dense.device)
+    scores = torch.empty((B, num_colors), dtype=torch.int16,
+                         device=dense.device)
+    if B == 0:
+        return hitw, scores
+    lib = kernels.library()
+    rc = lib.fulgor_km_scores(dense.data_ptr(), dense.shape[1], num_colors,
+                              hit.data_ptr(), csid.data_ptr(), B, Wk,
+                              scores.data_ptr(), hitw.data_ptr(),
+                              kernels.stream_of(dense))
+    kernels.check(rc, "km_scores")
+    kernels.launches["km_scores"] += 1
+    return hitw, scores

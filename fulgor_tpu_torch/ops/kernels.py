@@ -25,10 +25,11 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
 LIB = os.path.join(BUILD, "libfulgor_kernels.so")
-SOURCES = ("prep.cu", "probe.cu", "intersect.cu")
+SOURCES = ("prep.cu", "probe.cu", "intersect.cu", "union.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
-launches = {"window_prep": 0, "minidict2_probe": 0, "fi_and": 0}
+launches = {"window_prep": 0, "minidict2_probe": 0, "fi_and": 0,
+            "tu_mask": 0, "km_scores": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -105,8 +106,11 @@ def library():
             [P, ct.c_int64, P, ct.c_int64, P, ct.c_int64]
             + [P] * 10 + [ct.c_int64, I, I, ct.c_uint32, I, I] + [P] * 3 + [P])
         lib.fulgor_fi_and.argtypes = [P, I, P, P, I, I, P, P]
+        lib.fulgor_tu_mask.argtypes = [P, I, I, P, P, I, I, P, P, P]
+        lib.fulgor_km_scores.argtypes = [P, I, I, P, P, I, I, P, P, P]
         for fn in (lib.fulgor_window_prep, lib.fulgor_minidict2_probe,
-                   lib.fulgor_fi_and):
+                   lib.fulgor_fi_and, lib.fulgor_tu_mask,
+                   lib.fulgor_km_scores):
             fn.restype = I
         _lib = lib
         return lib

@@ -8,7 +8,7 @@ static (m, num_slots) of Index.device_dict, as in fulgor_tpu.
 
 from __future__ import annotations
 
-from .intersect import fi_and
+from .intersect import fi_and, km_scores, tu_mask
 from .minidict2 import SKEW_CAND, VERIFY_BUDGET
 from .prep import window_prep
 from .probe import minidict2_probe
@@ -35,3 +35,32 @@ def query_full_intersection_packed(table, dense_bits, codes2, bad, *, k: int,
         table, codes2, bad, k=k, width=width, dparams=dparams,
         probe_budget=probe_budget)
     return fi_and(dense_bits, hit, csid), ovf.any(dim=1)
+
+
+def query_tu_bits_packed(table, dense_bits, codes2, bad, minscore_tab, *,
+                         k: int, width: int, num_colors: int, dparams,
+                         probe_budget=None):
+    """K1 -> K2 -> K4 -> (maskbits (B, C32) int32, ovf (B,) bool): threshold
+    union with the >= min-score comparison on the card, the counterpart of
+    fulgor_tpu pipeline.py:264 query_tu_lists_packed without its
+    first_set_bits lists. minscore_tab: (Wk + 1,) int32, floor(npos * tau)
+    made on the host in f64 (the reference rule,
+    src/ps_threshold_union.cpp:389)."""
+    hit, csid, ovf = query_window_csids_packed(
+        table, codes2, bad, k=k, width=width, dparams=dparams,
+        probe_budget=probe_budget)
+    return (tu_mask(dense_bits, hit, csid, minscore_tab, num_colors),
+            ovf.any(dim=1))
+
+
+def query_kmer_matches_packed2(table, dense_bits, codes2, bad, *, k: int,
+                               width: int, num_colors: int, dparams,
+                               probe_budget=None):
+    """K1 -> K2 -> K5 -> (hitw (B, ceil(Wk/32)) int32, scores (B, C) int16,
+    ovf (B,) bool) (fulgor_tpu pipeline.py:363). scores are u16 counts
+    carried as int16 bit patterns (at most Wk <= 1024)."""
+    hit, csid, ovf = query_window_csids_packed(
+        table, codes2, bad, k=k, width=width, dparams=dparams,
+        probe_budget=probe_budget)
+    hitw, scores = km_scores(dense_bits, hit, csid, num_colors)
+    return hitw, scores, ovf.any(dim=1)
