@@ -87,6 +87,7 @@ READ_LEN, WIDTH, BATCH = 150, 160, 32768
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12
 REPS_KERNEL, REPS_PLAIN = 20, 3
+PROFILE_ATTEMPTS = 3
 E2E_PASSES, TU_PASSES, KM_PASSES = 5, 3, 3
 TAU = 0.8
 # the reference's Salmonella index: 4,546 genomes (C32 = 143)
@@ -107,24 +108,36 @@ def kernel_ms(fn, name, reps, flush=None):
     """Median device milliseconds of one launch of kernel `name` over
     `reps` calls of fn after a warm-up, as torch.profiler records them.
     flush: a device buffer zeroed before each call, so that every launch
-    starts with a cold L2. Raises unless exactly `reps` launches were
-    recorded."""
+    starts with a cold L2. The wrapper's own count must show `reps`
+    launches in each recording. The profiler now and then records fewer
+    kernel events than were launched (15 of 20 once, in a process's first
+    session on an H100): such a recording is discarded and the launches
+    timed again, up to PROFILE_ATTEMPTS recordings. Raises unless one
+    recording holds exactly `reps` launches."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if flush is not None:
-                flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    ts = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-          if f"{name}_kernel" in e.name]
-    if len(ts) != reps:
-        raise RuntimeError(f"the profiler recorded {len(ts)} of {reps} "
-                           f"{name} launches")
-    return statistics.median(ts)
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        before = kernels.launches[name]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if flush is not None:
+                    flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        launched = kernels.launches[name] - before
+        if launched != reps:
+            raise RuntimeError(f"{reps} calls made {launched} {name} launches")
+        ts = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+              if f"{name}_kernel" in e.name]
+        if len(ts) == reps:
+            return statistics.median(ts)
+        log(f"[kernels] {name}: the profiler recorded {len(ts)} of {reps} "
+            f"launches (recording {attempt} of {PROFILE_ATTEMPTS}), "
+            "discarded")
+    raise RuntimeError(f"no recording of {PROFILE_ATTEMPTS} held all {reps} "
+                       f"{name} launches")
 
 
 def time_ms(fn, reps):
