@@ -16,12 +16,14 @@ last line, which is printed only when every phase passed:
               at 0.5% errors sampled from every 16th genome.
   4. kernels  one full batch of real reads (B=32768, W=160): each kernel
               against its plain PyTorch version, bit for bit (tolerance 0),
-              K4 at tau 0.8 and 1.0 (where it must also equal K3), with
+              K4 at tau 0.8 and 1.0 (where it must also equal K3), K6 at run
+              budgets 2, 16, 32, Wk, 2 Wk and the engine's two, with
               times (kernels: median device time per launch from
               torch.profiler, with L2 flushed before each launch and warm;
               plain versions: CUDA events) and bounds; then K4 and K5 on
               4,096 of the batch's reads against a seeded random dense
-              matrix of 4,546 colours (the reference's Salmonella width).
+              matrix of 4,546 colours (the reference's Salmonella width);
+              query_runs_tu_packed against its plain composition.
   5. e2e      on the card over every read, each path with the launch counts
               reset just before each timed run and checked just after:
               FI pseudoalign_file (a warm-up, five timed runs to /dev/null,
@@ -29,12 +31,17 @@ last line, which is printed only when every phase passed:
               a run to a file); TU pseudoalign_file at tau 0.8 (a warm-up,
               three timed runs, a profiled run, an ascii and a binary run to
               files, which must hold the same records); kmer_matches_file (a
-              warm-up, three timed runs, a run to a file).
+              warm-up, three timed runs, a run to a file);
+              kmer_conservation_file and pseudoalign_file(deduplicate=True)
+              (each a warm-up, three timed runs, kc a profiled run, a run to
+              a file, and a run to a file with the run budget forced to 2,
+              which must be byte-identical to the first).
   6. mirror   the exact host mirror (lookup_host_exact) in spawned workers,
               once for every read any path redid and a seeded sample of
-              2,000 others: the FI lists, the TU(0.8) lists and the
-              kmer-matches positivity and counts derived from its csids
-              must equal the three output files.
+              2,000 others: the FI lists, the TU(0.8) lists, the
+              kmer-matches positivity and counts and the kmer-conservation
+              runs derived from its csids must equal the output files; the
+              --deduplicate file must equal the FI file on every read.
 
 The line before the last is one JSON object of per-kernel numbers; the
 last is {"ok": true, "device": {...}}.
@@ -66,13 +73,16 @@ from fulgor_tpu_torch.native import lib as native
 from fulgor_tpu_torch.ops import kernels
 from fulgor_tpu_torch.ops.hostpack import pack_reads_host
 from fulgor_tpu_torch.ops.intersect import (
-    fi_and, fi_and_plain, km_scores, km_scores_plain, tu_mask, tu_mask_plain,
+    compact_runs, compact_runs_plain, fi_and, fi_and_plain, km_scores,
+    km_scores_plain, tu_mask, tu_mask_plain,
 )
 from fulgor_tpu_torch.ops.minidict2 import lookup_host_exact
 from fulgor_tpu_torch.ops.prep import PREP_FIELDS, window_prep, window_prep_plain
+from fulgor_tpu_torch.ops.pipeline import query_runs_tu_packed
 from fulgor_tpu_torch.ops.probe import minidict2_probe, minidict2_probe_plain
 from fulgor_tpu_torch.ops.u32 import mix32, mulhi32, u32
-from fulgor_tpu_torch.query.engine import QueryEngine
+from fulgor_tpu_torch.query import engine as engine_mod
+from fulgor_tpu_torch.query.engine import QueryEngine, conservation_runs
 
 # fulgor_tpu bench.py:53-55: the pansal4546 calibration (4,546 Salmonella
 # genomes in the reference's published index) of the block simulator
@@ -88,7 +98,7 @@ HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12
 REPS_KERNEL, REPS_PLAIN = 20, 3
 PROFILE_ATTEMPTS = 3
-E2E_PASSES, TU_PASSES, KM_PASSES = 5, 3, 3
+E2E_PASSES, TU_PASSES, KM_PASSES, KC_PASSES, DEDUP_PASSES = 5, 3, 3, 3, 3
 TAU = 0.8
 # the reference's Salmonella index: 4,546 genomes (C32 = 143)
 WIDE_C, WIDE_READS = 4546, 4096
@@ -97,7 +107,13 @@ PATH_KERNELS = {
     "fi": (("window_prep", "minidict2_probe", "fi_and"), ()),
     "tu": (("window_prep", "minidict2_probe", "tu_mask"), ("fi_and",)),
     "km": (("window_prep", "minidict2_probe", "km_scores"), ()),
+    "kc": (("window_prep", "minidict2_probe", "compact_runs"),
+           ("fi_and", "tu_mask", "km_scores")),
+    "dedup": (("window_prep", "minidict2_probe", "compact_runs"),
+              ("fi_and", "tu_mask", "km_scores")),
 }
+# the run budget forced on kc and dedup for their overflow runs
+FORCED_RUNS = 2
 
 
 def log(msg):
@@ -397,6 +413,11 @@ def phase_kernels(idx, eng, codes):
     errs_wide = phase_wide_c(eng, hit, csid)
     rows[-2]["max_abs_err"] = max(rows[-2]["max_abs_err"], errs_wide[0])
     rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"], errs_wide[1])
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    rows.append(phase_runs(eng, hit, csid, flush))
+    del flush
+    rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"],
+                                  phase_runs_tu(eng, c2, bd))
 
     for r in rows:
         b_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -410,6 +431,72 @@ def phase_kernels(idx, eng, codes):
         if r["max_abs_err"] != 0:
             raise RuntimeError(f"{r['name']} disagrees with its plain version")
     return rows
+
+
+def runs_bytes(R) -> int:
+    """K6's bytes at run budget R: hit and csid read once (5 B a window),
+    an int32 csid and two u16 a run slot and two int32 a read written."""
+    return BATCH * (WIDTH - K + 1) * 5 + BATCH * R * 8 + BATCH * 8
+
+
+def phase_runs(eng, hit, csid, flush):
+    """K6 against compact_runs_plain on the batch's (hit, csid), bit for
+    bit on all five outputs, at run budgets 2 (most reads overflow), 16,
+    32, Wk, 2 Wk and the engine's kmer-conservation and --deduplicate
+    budgets; timed at the last two. -> the kernel's row."""
+    Wk = WIDTH - K + 1
+    r_kc = engine_mod._runs_budget(WIDTH, eng._ekpu, K)
+    r_dd = 2 * r_kc
+    log(f"[kernels] index ekpu {eng._ekpu:.2f}: run budget at W={WIDTH} "
+        f"{r_kc} (kmer-conservation), {r_dd} (--deduplicate)")
+    err = 0
+    for R in sorted({2, 16, 32, Wk, 2 * Wk, r_kc, r_dd}):
+        got = compact_runs(hit, csid, R)
+        want = compact_runs_plain(hit, csid, R)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        err = max(err, e)
+        log(f"[kernels] compact_runs at R={R}: {int((got[3] > R).sum())} of "
+            f"{hit.shape[0]} reads past R, up to {int(got[3].max())} runs "
+            f"a read, {int(got[3].sum())} runs, max_abs_err {e}")
+    ms, warm = kernel_times(lambda: compact_runs(hit, csid, r_kc),
+                            "compact_runs", flush)
+    ms_dd, warm_dd = kernel_times(lambda: compact_runs(hit, csid, r_dd),
+                                  "compact_runs", flush)
+    log(f"[kernels] compact_runs at the --deduplicate budget R={r_dd}: "
+        f"{ms_dd:.4f} ms cold L2, {warm_dd:.4f} ms warm, bound "
+        f"{runs_bytes(r_dd) / HBM_BYTES_PER_S * 1e3:.4f} ms by bytes "
+        f"({runs_bytes(r_dd) / 1e6:.1f} MB)")
+    return dict(
+        name="compact_runs", source="fulgor_tpu_torch/csrc/runs.cu",
+        replaces="fulgor_tpu/ops/intersect.py:188", max_abs_err=err,
+        ms=ms, warm_ms=warm,
+        plain_ms=time_ms(lambda: compact_runs_plain(hit, csid, r_kc),
+                         REPS_PLAIN),
+        # shuffles, compares, ballots and popcounts: ~16 a window
+        bytes=runs_bytes(r_kc), ops=BATCH * Wk * 16)
+
+
+def phase_runs_tu(eng, c2, bd) -> int:
+    """query_runs_tu_packed (K1 -> K2 -> K6) against its composition of
+    the plain versions on the batch. -> max_abs_err."""
+    m, num_slots = eng.dparams
+    slots, text32, skew = eng.table
+    R = engine_mod._runs_budget(WIDTH, eng._ekpu, K)
+    got = query_runs_tu_packed(eng.table, c2, bd, k=K, width=WIDTH, R=R,
+                               dparams=eng.dparams, probe_budget=eng._pb)
+    prep = window_prep_plain(c2, bd, width=WIDTH, k=K, m=M)
+    hit, csid, ovf = minidict2_probe_plain(
+        slots, text32, skew, prep, k=K, m=m, num_slots=num_slots,
+        vb=eng._pb[0], sc=eng._pb[1])
+    rc, _start, rl, total, npos = compact_runs_plain(hit, csid, R)
+    want = (rc, rl.to(torch.int32), npos, (total > R) | ovf.any(dim=1))
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    log(f"[kernels] query_runs_tu_packed at R={R} against its plain "
+        f"composition: {int(got[3].sum())} reads in overflow, max_abs_err "
+        f"{err}")
+    return err
 
 
 def count_runs(hit, csid) -> int:
@@ -505,8 +592,9 @@ def _mirror_init(index_path, codes_path):
 def _host_mirror(q):
     """Read q by the exact host mirror: lookup_host_exact over every
     window, then from its csids the FI colours (intersection of the decoded
-    colour sets), the TU(TAU) colours and the kmer-matches counts (each
-    positive window adds one to every colour of its set)."""
+    colour sets), the TU(TAU) colours, the kmer-matches counts (each
+    positive window adds one to every colour of its set) and the
+    kmer-conservation runs."""
     pos, csid = lookup_host_exact(_MIRROR["d"],
                                   np.asarray(_MIRROR["codes"][q]))
     eng = _MIRROR["eng"]
@@ -517,7 +605,8 @@ def _host_mirror(q):
     npos = int(pos.sum())
     tu = (np.flatnonzero(counts >= int(npos * TAU)).astype(np.uint32)
           if npos else np.empty(0, np.uint32))
-    return eng._fi_from_csids(csid), tu, pos, counts
+    return (eng._fi_from_csids(csid), tu, pos, counts,
+            conservation_runs(pos, csid))
 
 
 def timed_passes(path, fn, passes):
@@ -644,11 +733,101 @@ def phase_km(eng, reads, tmp):
                 rate=statistics.median(rates))
 
 
-def phase_mirror(idx, codes, names, tmp, seed, fi, tu, km):
+def forced_runs_budget(fn):
+    """fn() with the engine's run budget forced to FORCED_RUNS, so that
+    most reads take the run-overflow paths."""
+    keep = engine_mod._runs_budget
+    engine_mod._runs_budget = lambda W, ekpu=64.0, k=31: FORCED_RUNS
+    try:
+        return fn()
+    finally:
+        engine_mod._runs_budget = keep
+
+
+def same_bytes(a, b) -> bool:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+def phase_kc(eng, reads, tmp):
+    def fn(out=os.devnull):
+        return eng.kmer_conservation_file(reads, out)
+
+    log(f"[kc] index ekpu {eng._ekpu:.2f}: run budget "
+        f"{engine_mod._runs_budget(WIDTH, eng._ekpu, K)} at W={WIDTH}")
+    fn()  # warm-up
+    rates, _st, launches = timed_passes("kc", fn, KC_PASSES)
+    profiled_pass("kc", fn)
+    out = os.path.join(tmp, "kc.tsv")
+    st = fn(out)
+    forced = os.path.join(tmp, "kc_forced.tsv")
+    kernels.reset_launches()
+    st2 = forced_runs_budget(lambda: fn(forced))
+    same = same_bytes(out, forced)
+    log(f"[kc] output file: {os.path.getsize(out) / 1e6:.1f} MB; run budget "
+        f"forced to {FORCED_RUNS}: {st2['num_redo']} reads redone "
+        f"({st2['num_redo_host']} on the host) in {st2['elapsed']:.3f} s, "
+        f"launches {dict(kernels.launches)}, byte-identical: {same}")
+    if not same:
+        raise RuntimeError("kmer-conservation differs under a forced run "
+                           "budget")
+    return dict(out=out, redo=st["redo_ids"], launches=launches,
+                rate=statistics.median(rates))
+
+
+def phase_dedup(eng, reads, tmp):
+    def fn(out=os.devnull):
+        return eng.pseudoalign_file(reads, out, deduplicate=True)
+
+    log(f"[dedup] run budget "
+        f"{2 * engine_mod._runs_budget(WIDTH, eng._ekpu, K)} at W={WIDTH}")
+    fn()  # warm-up
+    rates, _st, launches = timed_passes("dedup", fn, DEDUP_PASSES)
+    out = os.path.join(tmp, "dedup.tsv")
+    st = fn(out)
+    forced = os.path.join(tmp, "dedup_forced.tsv")
+    st2 = forced_runs_budget(lambda: fn(forced))
+    same = same_bytes(out, forced)
+    log(f"[dedup] {st['num_keys']} distinct keys for {st['num_reads']} "
+        f"reads, {st['num_run_ovf']} reads past the run budget; run budget "
+        f"forced to {2 * FORCED_RUNS}: {st2['num_run_ovf']} reads past it, "
+        f"{st2['elapsed']:.3f} s, byte-identical: {same}")
+    if not same:
+        raise RuntimeError("--deduplicate differs under a forced run budget")
+    return dict(out=out, redo=st["redo_ids"], launches=launches,
+                rate=statistics.median(rates))
+
+
+def records_by_qid(path) -> list:
+    """The lines of an ascii pseudoalignment file, sorted by read id."""
+    with open(path, "rb") as f:
+        lines = f.read().splitlines()
+    return sorted(lines, key=lambda ln: int(ln[: ln.index(b"\t")]))
+
+
+def kc_line(name, runs) -> str:
+    """A kmer-conservation line as format_kc writes it."""
+    return f"{name}\t{len(runs)}" + "".join(f"\t({p} {n} {i})"
+                                           for p, n, i in runs)
+
+
+def phase_mirror(idx, codes, names, tmp, seed, fi, tu, km, kc, dedup):
     """Every read any path redid and a seeded sample of 2,000 others: the
-    three output files against the exact host mirror."""
+    FI, TU, kmer-matches and kmer-conservation files against the exact
+    host mirror; the --deduplicate file against the FI file on every
+    read."""
+    t0 = time.perf_counter()
+    fi_sorted = records_by_qid(fi["out"])
+    with open(dedup["out"], "rb") as f:
+        dd_lines = f.read().splitlines()
+    same = fi_sorted == dd_lines and len(dd_lines) == len(codes)
+    log(f"[mirror] --deduplicate against FI: {len(dd_lines)} records, equal "
+        f"on every read: {same} ({time.perf_counter() - t0:.1f} s)")
+    if not same:
+        raise RuntimeError("the --deduplicate file differs from the FI file")
     rng = np.random.default_rng(seed)
-    redone = set(fi["redo"]) | set(tu["redo"]) | set(km["redo"])
+    redone = (set(fi["redo"]) | set(tu["redo"]) | set(km["redo"])
+              | set(kc["redo"]) | set(dedup["redo"]))
     sample = rng.choice(len(codes), size=min(2000, len(codes)), replace=False)
     check = sorted(redone | set(sample.tolist()))
     want_set = set(check)
@@ -668,8 +847,13 @@ def phase_mirror(idx, codes, names, tmp, seed, fi, tu, km):
     if header != f"num_colors={idx.num_colors}" or nlines != len(codes):
         raise RuntimeError(f"kmer-matches output: header {header!r}, "
                            f"{nlines} lines for {len(codes)} reads")
+    with open(kc["out"]) as f:
+        kc_lines = {q: ln.rstrip("\n") for q, ln in enumerate(f)
+                    if q in want_set}
     if len(fi_recs) != len(check) or len(tu_recs) != len(check):
         raise RuntimeError("a checked read has no FI or TU record")
+    if len(kc_lines) != len(check):
+        raise RuntimeError("a checked read has no kmer-conservation line")
     t1 = time.perf_counter()
     # the per-read exact mirror is a Python loop (~25 ms a read): spread it
     # over the host's cores, in spawned workers that load the saved index
@@ -681,9 +865,9 @@ def phase_mirror(idx, codes, names, tmp, seed, fi, tu, km):
             os.cpu_count(), initializer=_mirror_init,
             initargs=(index_path, codes_path)) as pool:
         wants = pool.map(_host_mirror, check, chunksize=64)
-    bad = {"fi": [], "tu": [], "km": []}
+    bad = {"fi": [], "tu": [], "km": [], "kc": []}
     Wk = READ_LEN - K + 1
-    for q, (fi_w, tu_w, hit_w, counts_w) in zip(check, wants):
+    for q, (fi_w, tu_w, hit_w, counts_w, runs_w) in zip(check, wants):
         if not np.array_equal(fi_recs[q], fi_w):
             bad["fi"].append(q)
         if not np.array_equal(tu_recs[q], tu_w):
@@ -693,9 +877,12 @@ def phase_mirror(idx, codes, names, tmp, seed, fi, tu, km):
                 or f[2: 2 + Wk] != [str(int(h)) for h in hit_w]
                 or f[2 + Wk:] != [str(c) for c in counts_w]):
             bad["km"].append(q)
+        if kc_lines[q] != kc_line(names[q], runs_w):
+            bad["kc"].append(q)
     log(f"[mirror] {len(redone)} redone + {len(check) - len(redone)} sampled "
         f"reads against the exact host mirror: FI {len(bad['fi'])}, "
-        f"TU({TAU}) {len(bad['tu'])}, kmer-matches {len(bad['km'])} differ "
+        f"TU({TAU}) {len(bad['tu'])}, kmer-matches {len(bad['km'])}, "
+        f"kmer-conservation {len(bad['kc'])} differ "
         f"(files read in {t1 - t0:.1f} s, mirror "
         f"{time.perf_counter() - t1:.1f} s)")
     if any(bad.values()):
@@ -723,14 +910,19 @@ def main():
         fi = phase_fi(eng, reads, tmp)
         tu = phase_tu(eng, reads, tmp)
         km = phase_km(eng, reads, tmp)
-        phase_mirror(idx, codes, names, tmp, args.seed, fi, tu, km)
+        kc = phase_kc(eng, reads, tmp)
+        dedup = phase_dedup(eng, reads, tmp)
+        phase_mirror(idx, codes, names, tmp, args.seed, fi, tu, km, kc,
+                     dedup)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all; end to end "
         f"on {card}: FI {fi['rate']:.1f}, TU({TAU}) {tu['rate']:.1f}, "
-        f"kmer-matches {km['rate']:.1f} reads/s (medians)")
+        f"kmer-matches {km['rate']:.1f}, kmer-conservation "
+        f"{kc['rate']:.1f}, --deduplicate {dedup['rate']:.1f} reads/s "
+        f"(medians)")
     # each kernel's launches on its own path's last timed run
-    path_of = {"tu_mask": tu, "km_scores": km}
+    path_of = {"tu_mask": tu, "km_scores": km, "compact_runs": kc}
     out = []
     for r in rows:
         out.append(dict(

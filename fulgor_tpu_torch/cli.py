@@ -1,10 +1,12 @@
 """fulgor-tpu-torch command line: `build`, `pseudoalign` (full
-intersection, or threshold union with -r) and `kmer-matches`, with the
-flags of fulgor_tpu's cli (reference tools/fulgor.cpp). Queries run on the
-card unless --device says otherwise.
+intersection, threshold union with -r, or full intersection once per
+distinct colour-set list with --deduplicate), `kmer-conservation` and
+`kmer-matches`, with the flags of fulgor_tpu's cli (reference
+tools/fulgor.cpp). Queries run on the card unless --device says otherwise.
 
     python -m fulgor_tpu_torch.cli build -l list.txt -o idx [-k 31 -m 19]
-    python -m fulgor_tpu_torch.cli pseudoalign -i idx.tfur -q reads.fq -o out [-r 0.8]
+    python -m fulgor_tpu_torch.cli pseudoalign -i idx.tfur -q reads.fq -o out [-r 0.8 | --deduplicate]
+    python -m fulgor_tpu_torch.cli kmer-conservation -i idx.tfur -q reads.fq -o out
     python -m fulgor_tpu_torch.cli kmer-matches -i idx.tfur -q reads.fq -o out
 """
 
@@ -59,11 +61,25 @@ def cmd_build(args):
 def cmd_pseudoalign(args):
     from .query.engine import QueryEngine
 
+    if args.deduplicate and args.threshold is not None:
+        print("Deduplication not available for threshold < 1.0. Remove "
+              "--deduplicate flag.")
+        return 1
     idx = Index.load(args.index_filename)
     eng = QueryEngine(idx, batch_size=args.batch_size, device=args.device)
     eng.pseudoalign_file(args.query_filename, args.output_filename,
                          threshold=args.threshold, fmt=args.format,
-                         verbose=args.verbose)
+                         verbose=args.verbose, deduplicate=args.deduplicate)
+    return 0
+
+
+def cmd_kmer_conservation(args):
+    from .query.engine import QueryEngine
+
+    idx = Index.load(args.index_filename)
+    eng = QueryEngine(idx, batch_size=args.batch_size, device=args.device)
+    eng.kmer_conservation_file(args.query_filename, args.output_filename,
+                               verbose=args.verbose)
     return 0
 
 
@@ -119,9 +135,18 @@ def main(argv=None):
     add_query_args(q)
     q.add_argument("-r", dest="threshold", type=float, default=None,
                    help="threshold-union threshold in (0.0, 1.0]")
+    q.add_argument("--deduplicate", action="store_true",
+                   help="group reads with identical colour-set-id lists and "
+                        "intersect each distinct list once")
     q.add_argument("--format", dest="format", default="ascii",
                    choices=["ascii", "binary", "compressed"])
     q.set_defaults(fn=cmd_pseudoalign)
+
+    kc = sub.add_parser("kmer-conservation",
+                        help="per read: its runs of consecutive positive "
+                             "k-mers with equal colour-set id")
+    add_query_args(kc)
+    kc.set_defaults(fn=cmd_kmer_conservation)
 
     km = sub.add_parser("kmer-matches",
                         help="per read: window positivity and per-colour "

@@ -17,6 +17,13 @@ min-score table, as query_tu_lists_packed does, and packs the mask in
 pack_bool_bits' layout; K5 returns the scores as int16 with the windows'
 positivity bits, as query_kmer_matches_packed2 does.
 
+K6 `compact_runs` replaces mask_positions, _run_bounds, compact_runs and
+compact_runs_starts: each read's runs of consecutive positive windows with
+equal csid as a run list of a fixed budget R (csid, start, length), with
+the read's run count and positive-window count. It feeds kmer-conservation
+(query_conservation_runs_packed), --deduplicate (query_distinct_runs_packed)
+and query_runs_tu_packed.
+
 dense (S, C32), csid (B, Wk) int32 bit patterns, hit (B, Wk) bool. Each
 wrapper launches its csrc/ kernel for CUDA tensors and runs the plain
 version for CPU tensors; it never falls back.
@@ -31,6 +38,8 @@ from .u32 import i32
 
 # the kernels stage one read's windows in shared memory
 MAX_WK = 1024
+# K6 writes run starts and lengths as u16
+MAX_RUN_WK = 65535
 
 
 def fi_and_plain(dense, hit, csid):
@@ -183,3 +192,75 @@ def km_scores(dense, hit, csid, num_colors: int):
     kernels.check(rc, "km_scores")
     kernels.launches["km_scores"] += 1
     return hitw, scores
+
+
+def _first_positions(mask, R: int):
+    """Window positions of the first R set lanes of each row of a (B, W)
+    bool mask -> (B, R) int64, 0 past the row's count."""
+    B, _W = mask.shape
+    rank = torch.cumsum(mask, dim=1) - 1
+    b, w = (mask & (rank < R)).nonzero(as_tuple=True)
+    out = torch.zeros((B, R), dtype=torch.int64, device=mask.device)
+    out[b, rank[b, w]] = w
+    return out
+
+
+def compact_runs_plain(hit, csid, R: int):
+    """Plain PyTorch run compaction (any device), as fulgor_tpu's
+    _run_bounds computes it: run starts and ends by comparing each window
+    with its neighbours, their first R positions by a cumulative-sum rank.
+    -> (run_csid (B, R) int32, INVALID-padded; run_start, run_len (B, R)
+    int16 bit patterns of u16, 0-padded; total (B,) int32, every run of the
+    read; npos (B,) int32)."""
+    B, Wk = hit.shape
+    same = hit[:, 1:] & hit[:, :-1] & (csid[:, 1:] == csid[:, :-1])
+    cont = torch.zeros_like(hit)
+    cont[:, 1:] = same  # window w continues window w - 1's run
+    ends = torch.zeros_like(hit)
+    ends[:, :-1] = same  # window w + 1 continues window w's run
+    is_start, is_end = hit & ~cont, hit & ~ends
+    total = is_start.sum(dim=1, dtype=torch.int32)
+    spos = _first_positions(is_start, R)
+    epos = _first_positions(is_end, R)
+    valid = (torch.arange(R, device=hit.device)[None, :] < total[:, None])
+    run_csid = torch.where(valid, csid.gather(1, spos.clamp(max=Wk - 1)), -1)
+    return (run_csid, torch.where(valid, spos, 0).to(torch.int16),
+            torch.where(valid, epos - spos + 1, 0).to(torch.int16), total,
+            hit.sum(dim=1, dtype=torch.int32))
+
+
+def compact_runs(hit, csid, R: int):
+    """Each read's runs of equal csid, the first R of them -> (run_csid
+    (B, R) int32, run_start (B, R) int16, run_len (B, R) int16, total (B,)
+    int32, npos (B,) int32), as compact_runs_plain. Overflow is total > R.
+    1 <= R; R may exceed Wk (fulgor_tpu's --deduplicate budget is up to
+    2 * Wk)."""
+    if hit.device.type == "cpu":
+        return compact_runs_plain(hit, csid, R)
+    if hit.device.type != "cuda":
+        raise ValueError(f"compact_runs: unsupported device {hit.device}")
+    B, Wk = hit.shape
+    if (csid.dtype != torch.int32 or hit.dtype != torch.bool
+            or tuple(csid.shape) != (B, Wk) or csid.device != hit.device
+            or not (hit.is_contiguous() and csid.is_contiguous())):
+        raise ValueError("compact_runs: hit (B, Wk) bool and csid (B, Wk) "
+                         "int32, contiguous on one device")
+    if not (0 < Wk <= MAX_RUN_WK and R >= 1):
+        raise ValueError(f"compact_runs: needs 0 < Wk <= {MAX_RUN_WK} and "
+                         "R >= 1")
+    dev = hit.device
+    run_csid = torch.empty((B, R), dtype=torch.int32, device=dev)
+    run_start = torch.empty((B, R), dtype=torch.int16, device=dev)
+    run_len = torch.empty((B, R), dtype=torch.int16, device=dev)
+    total = torch.empty(B, dtype=torch.int32, device=dev)
+    npos = torch.empty(B, dtype=torch.int32, device=dev)
+    if B == 0:
+        return run_csid, run_start, run_len, total, npos
+    lib = kernels.library()
+    rc = lib.fulgor_compact_runs(hit.data_ptr(), csid.data_ptr(), B, Wk, R,
+                                 run_csid.data_ptr(), run_start.data_ptr(),
+                                 run_len.data_ptr(), total.data_ptr(),
+                                 npos.data_ptr(), kernels.stream_of(hit))
+    kernels.check(rc, "compact_runs")
+    kernels.launches["compact_runs"] += 1
+    return run_csid, run_start, run_len, total, npos

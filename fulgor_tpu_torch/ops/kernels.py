@@ -8,8 +8,9 @@ machine without nvcc.
 
 Each C entry point launches on the stream it is given and returns
 cudaGetLastError(); `check` raises on a non-zero code. `launches` counts
-the kernel launches made by the wrappers in ops/prep.py, ops/probe.py and
-ops/intersect.py (one per launch, nowhere else).
+the kernel launches made by the wrappers in ops/prep.py (window_prep),
+ops/probe.py (minidict2_probe) and ops/intersect.py (fi_and, tu_mask,
+km_scores, compact_runs): one per launch, nowhere else.
 """
 
 from __future__ import annotations
@@ -25,11 +26,11 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
 LIB = os.path.join(BUILD, "libfulgor_kernels.so")
-SOURCES = ("prep.cu", "probe.cu", "intersect.cu", "union.cu")
+SOURCES = ("prep.cu", "probe.cu", "intersect.cu", "union.cu", "runs.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 launches = {"window_prep": 0, "minidict2_probe": 0, "fi_and": 0,
-            "tu_mask": 0, "km_scores": 0}
+            "tu_mask": 0, "km_scores": 0, "compact_runs": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -108,9 +109,10 @@ def library():
         lib.fulgor_fi_and.argtypes = [P, I, P, P, I, I, P, P]
         lib.fulgor_tu_mask.argtypes = [P, I, I, P, P, I, I, P, P, P]
         lib.fulgor_km_scores.argtypes = [P, I, I, P, P, I, I, P, P, P]
+        lib.fulgor_compact_runs.argtypes = [P, P, I, I, I] + [P] * 5 + [P]
         for fn in (lib.fulgor_window_prep, lib.fulgor_minidict2_probe,
                    lib.fulgor_fi_and, lib.fulgor_tu_mask,
-                   lib.fulgor_km_scores):
+                   lib.fulgor_km_scores, lib.fulgor_compact_runs):
             fn.restype = I
         _lib = lib
         return lib

@@ -8,7 +8,9 @@ static (m, num_slots) of Index.device_dict, as in fulgor_tpu.
 
 from __future__ import annotations
 
-from .intersect import fi_and, km_scores, tu_mask
+import torch
+
+from .intersect import compact_runs, fi_and, km_scores, tu_mask
 from .minidict2 import SKEW_CAND, VERIFY_BUDGET
 from .prep import window_prep
 from .probe import minidict2_probe
@@ -64,3 +66,46 @@ def query_kmer_matches_packed2(table, dense_bits, codes2, bad, *, k: int,
         probe_budget=probe_budget)
     hitw, scores = km_scores(dense_bits, hit, csid, num_colors)
     return hitw, scores, ovf.any(dim=1)
+
+
+def query_conservation_runs_packed(table, codes2, bad, *, k: int, width: int,
+                                   R: int, dparams, probe_budget=None):
+    """K1 -> K2 -> K6 -> (run_csid (B, R) int32, run_start (B, R) int16,
+    run_len (B, R) int16, ovf (B,) bool) (fulgor_tpu pipeline.py:287):
+    kmer-conservation's (start, length, csid) records, start and length as
+    int16 bit patterns of u16; ovf = more than R runs or any probe overflow
+    of the read."""
+    hit, csid, ovf = query_window_csids_packed(
+        table, codes2, bad, k=k, width=width, dparams=dparams,
+        probe_budget=probe_budget)
+    run_csid, run_start, run_len, total, _npos = compact_runs(hit, csid, R)
+    return run_csid, run_start, run_len, (total > R) | ovf.any(dim=1)
+
+
+def query_runs_tu_packed(table, codes2, bad, *, k: int, width: int, R: int,
+                         dparams, probe_budget=None):
+    """K1 -> K2 -> K6 -> (run_csid (B, R) int32, run_cnt (B, R) int32,
+    npos (B,) int32, ovf (B,) bool) (fulgor_tpu pipeline.py:305): the
+    threshold-union fetch without device colour data, for the host to
+    score; ovf = run or probe overflow."""
+    hit, csid, ovf = query_window_csids_packed(
+        table, codes2, bad, k=k, width=width, dparams=dparams,
+        probe_budget=probe_budget)
+    run_csid, _start, run_len, total, npos = compact_runs(hit, csid, R)
+    return (run_csid, run_len.to(torch.int32), npos,
+            (total > R) | ovf.any(dim=1))
+
+
+def query_distinct_runs_packed(table, codes2, bad, *, k: int, width: int,
+                               R: int, dparams, probe_budget=None):
+    """K1 -> K2 -> K6 -> (run_csid (B, R) int32, probe_ovf (B,) bool,
+    run_ovf (B,) bool, csid (B, Wk) int32) (fulgor_tpu pipeline.py:320):
+    --deduplicate's fetch. The two overflows stay apart: a run-overflowed
+    read has every window decided, so its row of csid (INVALID where
+    negative, left on the device) is exact; a probe-overflowed read needs
+    the re-probe."""
+    hit, csid, ovf = query_window_csids_packed(
+        table, codes2, bad, k=k, width=width, dparams=dparams,
+        probe_budget=probe_budget)
+    run_csid, _start, _len, total, _npos = compact_runs(hit, csid, R)
+    return run_csid, ovf.any(dim=1), total > R, csid
