@@ -13,11 +13,16 @@ last line, which is printed only when every phase passed:
   3. index    a pansal4546-calibrated pangenome (fulgor_tpu's bench.py
               simulator settings) cut to --genomes genomes, built at k=31,
               m=19 into a temporary directory removed at exit; 150 bp reads
-              at 0.5% errors sampled from every 16th genome.
+              at 0.5% errors sampled from every 16th genome. Then the
+              --dict cuckoo dictionary of the same ccdBG (build_kmer_dict
+              over its unitig text, no second ccdBG build), saved and
+              loaded back.
   4. kernels  one full batch of real reads (B=32768, W=160): each kernel
               against its plain PyTorch version, bit for bit (tolerance 0),
               K4 at tau 0.8 and 1.0 (where it must also equal K3), K6 at run
-              budgets 2, 16, 32, Wk, 2 Wk and the engine's two, with
+              budgets 2, 16, 32, Wk, 2 Wk and the engine's two, K7 also
+              against K2 at the redo budget on every window K2 decides, K8
+              also against the host packer's bytes, with
               times (kernels: median device time per launch from
               torch.profiler, with L2 flushed before each launch and warm;
               plain versions: CUDA events) and bounds; then K4 and K5 on
@@ -36,12 +41,23 @@ last line, which is printed only when every phase passed:
               (each a warm-up, three timed runs, kc a profiled run, a run to
               a file, and a run to a file with the run budget forced to 2,
               which must be byte-identical to the first).
-  6. mirror   the exact host mirror (lookup_host_exact) in spawned workers,
+  6. cuckoo   the same tools on a QueryEngine over the cuckoo index (FI: a
+              warm-up, three timed runs, a profiled run; TU(0.8): three
+              timed runs; then each tool once to a file): every file must
+              equal the mini engine's (pseudoalign records sorted by read
+              id, kmer-matches and kmer-conservation byte for byte).
+  7. mirror   the exact host mirror (lookup_host_exact) in spawned workers,
               once for every read any path redid and a seeded sample of
               2,000 others: the FI lists, the TU(0.8) lists, the
               kmer-matches positivity and counts and the kmer-conservation
               runs derived from its csids must equal the output files; the
               --deduplicate file must equal the FI file on every read.
+  8. array    the array API on the mini engine over the reads' in-memory
+              codes, each call once: pseudoalign_codes FI and TU(0.8) must
+              equal the FI and TU files read by read,
+              pseudoalign_codes_dedup must equal FI, window_csids_codes
+              must equal the host mirror on phase 7's reads, and
+              pseudoalign_codes FI on the cuckoo engine must equal FI.
 
 The line before the last is one JSON object of per-kernel numbers; the
 last is {"ok": true, "device": {...}}.
@@ -50,6 +66,7 @@ last is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import multiprocessing
 import os
@@ -64,7 +81,9 @@ import time
 import numpy as np
 import torch
 
-from fulgor_tpu_torch.build.builder import build_index
+from fulgor_tpu_torch.build.builder import build_index, build_kmer_dict
+from fulgor_tpu_torch.constants import INVALID_U32
+from fulgor_tpu_torch.core.kmers import unpack2
 from fulgor_tpu_torch.index import Index
 from fulgor_tpu_torch.io.simulate import (
     simulate_pangenome_blocks, simulate_reads, write_fastq,
@@ -76,8 +95,13 @@ from fulgor_tpu_torch.ops.intersect import (
     compact_runs, compact_runs_plain, fi_and, fi_and_plain, km_scores,
     km_scores_plain, tu_mask, tu_mask_plain,
 )
+from fulgor_tpu_torch.ops.lookup import (
+    cuckoo_lookup, cuckoo_lookup_plain, cuckoo_row_gathers,
+)
 from fulgor_tpu_torch.ops.minidict2 import lookup_host_exact
-from fulgor_tpu_torch.ops.prep import PREP_FIELDS, window_prep, window_prep_plain
+from fulgor_tpu_torch.ops.prep import (
+    PREP_FIELDS, pack_codes, pack_codes_plain, window_prep, window_prep_plain,
+)
 from fulgor_tpu_torch.ops.pipeline import query_runs_tu_packed
 from fulgor_tpu_torch.ops.probe import minidict2_probe, minidict2_probe_plain
 from fulgor_tpu_torch.ops.u32 import mix32, mulhi32, u32
@@ -102,16 +126,29 @@ E2E_PASSES, TU_PASSES, KM_PASSES, KC_PASSES, DEDUP_PASSES = 5, 3, 3, 3, 3
 TAU = 0.8
 # the reference's Salmonella index: 4,546 genomes (C32 = 143)
 WIDE_C, WIDE_READS = 4546, 4096
-# the kernels each path must launch (and, for TU, must not)
+# the kernels each path must launch, and those it must not
+MINI, CUCKOO = ("window_prep", "minidict2_probe"), ("cuckoo_lookup",)
 PATH_KERNELS = {
-    "fi": (("window_prep", "minidict2_probe", "fi_and"), ()),
-    "tu": (("window_prep", "minidict2_probe", "tu_mask"), ("fi_and",)),
-    "km": (("window_prep", "minidict2_probe", "km_scores"), ()),
-    "kc": (("window_prep", "minidict2_probe", "compact_runs"),
-           ("fi_and", "tu_mask", "km_scores")),
-    "dedup": (("window_prep", "minidict2_probe", "compact_runs"),
-              ("fi_and", "tu_mask", "km_scores")),
+    "fi": (MINI + ("fi_and",), CUCKOO + ("pack_codes",)),
+    "tu": (MINI + ("tu_mask",), CUCKOO + ("fi_and", "pack_codes")),
+    "km": (MINI + ("km_scores",), CUCKOO + ("pack_codes",)),
+    "kc": (MINI + ("compact_runs",),
+           CUCKOO + ("fi_and", "tu_mask", "km_scores", "pack_codes")),
+    "dedup": (MINI + ("compact_runs",),
+              CUCKOO + ("fi_and", "tu_mask", "km_scores", "pack_codes")),
+    "cuckoo_fi": (CUCKOO + ("fi_and",), MINI + ("pack_codes",)),
+    "cuckoo_tu": (CUCKOO + ("tu_mask",), MINI + ("fi_and", "pack_codes")),
+    "cuckoo_km": (CUCKOO + ("km_scores",), MINI + ("pack_codes",)),
+    "cuckoo_kc": (CUCKOO + ("compact_runs",), MINI + ("pack_codes",)),
+    "cuckoo_dedup": (CUCKOO + ("compact_runs",), MINI + ("pack_codes",)),
+    "array_fi": (("pack_codes",) + MINI + ("fi_and",), CUCKOO),
+    "array_tu": (("pack_codes",) + MINI + ("km_scores",),
+                 CUCKOO + ("fi_and", "tu_mask")),
+    "array_dedup": (("pack_codes",) + MINI, CUCKOO + ("fi_and",)),
+    "array_csids": (("pack_codes",) + MINI, CUCKOO + ("fi_and",)),
+    "array_fi_cuckoo": (("pack_codes",) + CUCKOO + ("fi_and",), MINI),
 }
+CUCKOO_PASSES = 3
 # the run budget forced on kc and dedup for their overflow runs
 FORCED_RUNS = 2
 
@@ -260,6 +297,29 @@ def phase_index(tmp, genomes, num_reads, seed):
     return idx, codes, names, reads
 
 
+def phase_cuckoo_index(idx, tmp):
+    """The --dict cuckoo index of phase 3's ccdBG (its unitig text, u2c
+    and colour store; no second ccdBG build), saved and loaded back."""
+    t0 = time.perf_counter()
+    codes = unpack2(idx.unitig_seq, int(idx.unitig_offs[-1]))
+    table, n = build_kmer_dict(codes, idx.unitig_offs, idx.u2c_csid, K)
+    t1 = time.perf_counter()
+    if n != idx.num_kmers:
+        raise RuntimeError(f"cuckoo table holds {n} k-mers of {idx.num_kmers}")
+    path = os.path.join(tmp, "cuckoo.tfur")
+    dataclasses.replace(idx, dict_kind="cuckoo", dict_table=table,
+                        mini_slots=None, mini_sec=None, mini_num_slots=0,
+                        _mini_obj=None).save(path)
+    cidx = Index.load(path)
+    nb = len(cidx.dict_table)
+    log(f"[index] cuckoo dictionary of the same ccdBG: built in "
+        f"{t1 - t0:.1f} s, saved and loaded in {time.perf_counter() - t1:.1f}"
+        f" s; nb {nb} (b = {nb.bit_length() - 1}), "
+        f"{cidx.dict_table.nbytes} table bytes, load factor "
+        f"{n / (2 * nb):.4f} ({n} k-mers in {2 * nb} slots)")
+    return cidx
+
+
 def kernel_times(fn, name, flush):
     """(cold-L2 ms, warm ms) of one launch of kernel `name`: the first with
     `flush` zeroed before every launch, as on the main path, where each
@@ -269,7 +329,7 @@ def kernel_times(fn, name, flush):
             kernel_ms(fn, name, REPS_KERNEL))
 
 
-def phase_kernels(idx, eng, codes):
+def phase_kernels(idx, eng, ceng, codes):
     dev = eng.device
     chunk = np.full((BATCH, WIDTH), 4, dtype=np.uint8)
     n = min(BATCH, len(codes))
@@ -415,9 +475,10 @@ def phase_kernels(idx, eng, codes):
     rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"], errs_wide[1])
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     rows.append(phase_runs(eng, hit, csid, flush))
-    del flush
     rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"],
                                   phase_runs_tu(eng, c2, bd))
+    rows += phase_cuckoo_pack(eng, ceng, chunk, c2, bd, prep, flush)
+    del flush
 
     for r in rows:
         b_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -431,6 +492,76 @@ def phase_kernels(idx, eng, codes):
         if r["max_abs_err"] != 0:
             raise RuntimeError(f"{r['name']} disagrees with its plain version")
     return rows
+
+
+def phase_cuckoo_pack(eng, ceng, chunk, c2, bd, prep, flush):
+    """K7 on the kernels batch against its plain version, and against K2
+    at the redo budget on every window K2 decides; K8 on the same chunk's
+    codes against its plain version and the host packer's bytes.
+    -> the two kernels' rows."""
+    table = ceng.table
+    Wk = WIDTH - K + 1
+    lanes = BATCH * Wk
+    got = cuckoo_lookup(table, c2, bd, width=WIDTH, k=K)
+    want = cuckoo_lookup_plain(table, c2, bd, width=WIDTH, k=K)
+    slots, text32, skew = eng.table
+    m, num_slots = eng.dparams
+    hit2, csid2, ovf2 = minidict2_probe(
+        slots, text32, skew, prep, k=K, m=m, num_slots=num_slots,
+        vb=eng._pb_redo[0], sc=eng._pb_redo[1])
+    torch.cuda.synchronize()
+    err7 = max_abs_err(got, want)
+    decided = ~ovf2
+    differ = int(((got[0] != hit2) | (got[1] != csid2))[decided].sum())
+    log(f"[kernels] cuckoo_lookup: {int(got[0].sum())} hits of {lanes} "
+        f"windows, max_abs_err {err7}; against minidict2_probe at "
+        f"{eng._pb_redo} on the {int(decided.sum())} windows it decides: "
+        f"{differ} differ")
+    if differ:
+        raise RuntimeError("cuckoo_lookup differs from minidict2_probe")
+    rows_read = cuckoo_row_gathers(table, c2, bd, width=WIDTH, k=K)
+    io7 = BATCH * (WIDTH // 4 + WIDTH // 8) + lanes * 5
+    log(f"[kernels] cuckoo_lookup reads {rows_read} table rows of 16 B "
+        f"(one a valid window, two where the first choice misses): "
+        f"{(io7 + 16 * rows_read) / 1e6:.1f} MB, bound "
+        f"{(io7 + 16 * rows_read) / HBM_BYTES_PER_S * 1e3:.4f} ms; counted "
+        f"as 32-byte sectors {(io7 + 32 * rows_read) / 1e6:.1f} MB, "
+        f"{(io7 + 32 * rows_read) / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    ms7, warm7 = kernel_times(
+        lambda: cuckoo_lookup(table, c2, bd, width=WIDTH, k=K),
+        "cuckoo_lookup", flush)
+    row7 = dict(
+        name="cuckoo_lookup", source="fulgor_tpu_torch/csrc/cuckoo.cu",
+        replaces="fulgor_tpu/ops/lookup.py:186", max_abs_err=err7, ms=ms7,
+        warm_ms=warm7,
+        plain_ms=time_ms(lambda: cuckoo_lookup_plain(table, c2, bd,
+                                                     width=WIDTH, k=K),
+                         REPS_PLAIN),
+        # the k-mer, two 62-bit permutations and four slot compares: ~60
+        bytes=io7 + 16 * rows_read, ops=lanes * 60)
+
+    codes = torch.from_numpy(chunk).to(eng.device)
+    got = pack_codes(codes)
+    want = pack_codes_plain(codes)
+    torch.cuda.synchronize()
+    err8 = max_abs_err(got, want)
+    wire = (np.array_equal(got[0].view(torch.uint8).cpu().numpy(),
+                           c2.cpu().numpy())
+            and np.array_equal(got[1].view(torch.uint8).cpu().numpy(),
+                               bd.cpu().numpy()))
+    log(f"[kernels] pack_codes: max_abs_err {err8}; its bytes equal the host "
+        f"packer's: {wire}")
+    if not wire:
+        raise RuntimeError("pack_codes differs from pack_reads_host")
+    ms8, warm8 = kernel_times(lambda: pack_codes(codes), "pack_codes", flush)
+    row8 = dict(
+        name="pack_codes", source="fulgor_tpu_torch/csrc/pack.cu",
+        replaces="fulgor_tpu/ops/minidict2.py:919", max_abs_err=err8, ms=ms8,
+        warm_ms=warm8,
+        plain_ms=time_ms(lambda: pack_codes_plain(codes), REPS_PLAIN),
+        bytes=BATCH * WIDTH + BATCH * (WIDTH // 16 + WIDTH // 32) * 4,
+        ops=BATCH * WIDTH * 4)
+    return [row7, row8]
 
 
 def runs_bytes(R) -> int:
@@ -606,7 +737,7 @@ def _host_mirror(q):
     tu = (np.flatnonzero(counts >= int(npos * TAU)).astype(np.uint32)
           if npos else np.empty(0, np.uint32))
     return (eng._fi_from_csids(csid), tu, pos, counts,
-            conservation_runs(pos, csid))
+            conservation_runs(pos, csid), csid)
 
 
 def timed_passes(path, fn, passes):
@@ -716,7 +847,8 @@ def phase_tu(eng, reads, tmp):
         f"records: {same} ({time.perf_counter() - t0:.1f} s)")
     if not same:
         raise RuntimeError("the TU ascii and binary outputs differ")
-    return dict(out=(qids, offs, cat), redo=st_a["redo_ids"] + st_b["redo_ids"],
+    return dict(out=(qids, offs, cat), ascii=out_a,
+                redo=st_a["redo_ids"] + st_b["redo_ids"],
                 launches=launches, rate=statistics.median(rates))
 
 
@@ -815,7 +947,8 @@ def phase_mirror(idx, codes, names, tmp, seed, fi, tu, km, kc, dedup):
     """Every read any path redid and a seeded sample of 2,000 others: the
     FI, TU, kmer-matches and kmer-conservation files against the exact
     host mirror; the --deduplicate file against the FI file on every
-    read."""
+    read. -> {read id: (hit, csid)} of the checked reads, by the host
+    mirror."""
     t0 = time.perf_counter()
     fi_sorted = records_by_qid(fi["out"])
     with open(dedup["out"], "rb") as f:
@@ -867,7 +1000,7 @@ def phase_mirror(idx, codes, names, tmp, seed, fi, tu, km, kc, dedup):
         wants = pool.map(_host_mirror, check, chunksize=64)
     bad = {"fi": [], "tu": [], "km": [], "kc": []}
     Wk = READ_LEN - K + 1
-    for q, (fi_w, tu_w, hit_w, counts_w, runs_w) in zip(check, wants):
+    for q, (fi_w, tu_w, hit_w, counts_w, runs_w, _cs) in zip(check, wants):
         if not np.array_equal(fi_recs[q], fi_w):
             bad["fi"].append(q)
         if not np.array_equal(tu_recs[q], tu_w):
@@ -888,6 +1021,117 @@ def phase_mirror(idx, codes, names, tmp, seed, fi, tu, km, kc, dedup):
     if any(bad.values()):
         raise RuntimeError(f"reads differ from the host mirror: "
                            f"{ {k: v[:10] for k, v in bad.items()} }")
+    return {q: (w[2], w[5]) for q, w in zip(check, wants)}
+
+
+def phase_cuckoo(ceng, reads, tmp, fi, tu, km, kc, dedup):
+    """Every tool on the cuckoo index over every read: FI (a warm-up,
+    CUCKOO_PASSES timed runs, a profiled run, a run to a file), TU(TAU)
+    (CUCKOO_PASSES timed runs, a run to a file), kmer-matches,
+    kmer-conservation and --deduplicate (a run to a file each). Each file
+    must equal the mini engine's: pseudoalign records sorted by read id,
+    kmer-matches and kmer-conservation byte for byte. -> the FI path's
+    launches and the medians."""
+    def psa(out=os.devnull, **kw):
+        return ceng.pseudoalign_file(reads, out, **kw)
+
+    psa()  # warm-up
+    rates_fi, _st, launches = timed_passes("cuckoo_fi", psa, CUCKOO_PASSES)
+    profiled_pass("cuckoo_fi", psa)
+    rates_tu, _st, _l = timed_passes(
+        "cuckoo_tu", lambda: psa(threshold=TAU), CUCKOO_PASSES)
+    outs = {t: os.path.join(tmp, f"cuckoo.{t}")
+            for t in ("fi", "tu", "km", "kc", "dedup")}
+    runs = {"fi": ("cuckoo_fi", lambda: psa(outs["fi"])),
+            "tu": ("cuckoo_tu", lambda: psa(outs["tu"], threshold=TAU)),
+            "km": ("cuckoo_km",
+                   lambda: ceng.kmer_matches_file(reads, outs["km"])),
+            "kc": ("cuckoo_kc",
+                   lambda: ceng.kmer_conservation_file(reads, outs["kc"])),
+            "dedup": ("cuckoo_dedup",
+                      lambda: psa(outs["dedup"], deduplicate=True))}
+    for path, fn in runs.values():
+        timed_passes(path, fn, 1)
+    mini = {"fi": fi["out"], "tu": tu["ascii"], "km": km["out"],
+            "kc": kc["out"], "dedup": dedup["out"]}
+    t0 = time.perf_counter()
+    same = {t: (records_by_qid(outs[t]) == records_by_qid(mini[t])
+                if t in ("fi", "tu", "dedup") else same_bytes(outs[t], mini[t]))
+            for t in outs}
+    log(f"[cuckoo] each output file equal to the mini engine's: {same} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not all(same.values()):
+        raise RuntimeError("a cuckoo-engine output differs from the mini "
+                           "engine's")
+    return dict(launches=launches, rate=statistics.median(rates_fi),
+                rate_tu=statistics.median(rates_tu))
+
+
+def array_pass(path, fn, num_reads):
+    """fn() once, the launch counts reset just before and checked just
+    after against PATH_KERNELS[path]. -> (result, reads/s, launches)."""
+    need, forbid = PATH_KERNELS[path]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    log(f"[{path}] {num_reads} reads in {dt:.3f} s: "
+        f"{num_reads / dt:.1f} reads/s; launches {launches}")
+    missing = [k for k in need if launches[k] <= 0]
+    extra = [k for k in forbid if launches[k] > 0]
+    if missing or extra:
+        raise RuntimeError(f"{path} path: kernels not launched {missing}, "
+                           f"launched and not expected {extra}")
+    return res, num_reads / dt, launches
+
+
+def phase_array(eng, ceng, codes, fi, tu, mirror):
+    """The array API on the mini engine over the in-memory codes of every
+    read, each call once: pseudoalign_codes FI and TU(TAU) must equal the
+    FI and TU files read by read, pseudoalign_codes_dedup must equal FI,
+    window_csids_codes must equal the host mirror on the mirror phase's
+    reads; pseudoalign_codes FI on the cuckoo engine must equal it too.
+    -> the FI path's launches and the rates."""
+    n = len(codes)
+    lens = np.full(n, codes.shape[1], dtype=np.int64)
+    rates = {}
+    lists, rates["fi"], launches = array_pass(
+        "array_fi", lambda: eng.pseudoalign_codes(codes, lens), n)
+    tu_lists, rates["tu"], _l = array_pass(
+        "array_tu", lambda: eng.pseudoalign_codes(codes, lens, threshold=TAU),
+        n)
+    dd_lists, rates["dedup"], _l = array_pass(
+        "array_dedup", lambda: eng.pseudoalign_codes_dedup(codes, lens), n)
+    csids, rates["csids"], _l = array_pass(
+        "array_csids", lambda: eng.window_csids_codes(codes, lens), n)
+    c_lists, rates["fi_cuckoo"], _l = array_pass(
+        "array_fi_cuckoo", lambda: ceng.pseudoalign_codes(codes, lens), n)
+    t0 = time.perf_counter()
+    fi_recs = ascii_records(fi["out"], set(range(n)))
+    qids, offs, cat = tu["out"]
+    tu_recs = {int(q): cat[offs[i]: offs[i + 1]] for i, q in enumerate(qids)}
+    bad = {
+        "fi": [q for q in range(n) if not np.array_equal(lists[q], fi_recs[q])],
+        "tu": [q for q in range(n)
+               if not np.array_equal(tu_lists[q], tu_recs[q])],
+        "dedup": [q for q in range(n)
+                  if not np.array_equal(dd_lists[q], lists[q])],
+        "fi_cuckoo": [q for q in range(n)
+                      if not np.array_equal(c_lists[q], lists[q])],
+        "csids": [q for q, (hit, cs) in mirror.items()
+                  if not (np.array_equal(csids[q][0], hit) and np.array_equal(
+                      csids[q][1], np.where(hit, cs, np.uint32(INVALID_U32))))],
+    }
+    log(f"[array] {n} reads: FI, TU({TAU}) against the files, dedup and "
+        f"cuckoo FI against FI, window csids against the host mirror on "
+        f"{len(mirror)} reads: { {k: len(v) for k, v in bad.items()} } differ "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if any(bad.values()):
+        raise RuntimeError(f"array API results differ: "
+                           f"{ {k: v[:10] for k, v in bad.items()} }")
+    return dict(launches=launches, rates=rates)
 
 
 def main():
@@ -906,23 +1150,30 @@ def main():
         eng = QueryEngine(idx)
         log(f"[index] covered fraction {eng._covered_frac:.4f} -> probe "
             f"budget {eng._pb}, redo budget {eng._pb_redo}")
-        rows = phase_kernels(idx, eng, codes)
+        ceng = QueryEngine(phase_cuckoo_index(idx, tmp))
+        rows = phase_kernels(idx, eng, ceng, codes)
         fi = phase_fi(eng, reads, tmp)
         tu = phase_tu(eng, reads, tmp)
         km = phase_km(eng, reads, tmp)
         kc = phase_kc(eng, reads, tmp)
         dedup = phase_dedup(eng, reads, tmp)
-        phase_mirror(idx, codes, names, tmp, args.seed, fi, tu, km, kc,
-                     dedup)
+        cuckoo = phase_cuckoo(ceng, reads, tmp, fi, tu, km, kc, dedup)
+        mirror = phase_mirror(idx, codes, names, tmp, args.seed, fi, tu, km,
+                              kc, dedup)
+        array = phase_array(eng, ceng, codes, fi, tu, mirror)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all; end to end "
         f"on {card}: FI {fi['rate']:.1f}, TU({TAU}) {tu['rate']:.1f}, "
         f"kmer-matches {km['rate']:.1f}, kmer-conservation "
         f"{kc['rate']:.1f}, --deduplicate {dedup['rate']:.1f} reads/s "
-        f"(medians)")
+        f"(medians); cuckoo FI {cuckoo['rate']:.1f}, TU({TAU}) "
+        f"{cuckoo['rate_tu']:.1f} reads/s (medians); array API "
+        f"{ {k: round(v, 1) for k, v in array['rates'].items()} } reads/s "
+        f"(one call each)")
     # each kernel's launches on its own path's last timed run
-    path_of = {"tu_mask": tu, "km_scores": km, "compact_runs": kc}
+    path_of = {"tu_mask": tu, "km_scores": km, "compact_runs": kc,
+               "cuckoo_lookup": cuckoo, "pack_codes": array}
     out = []
     for r in rows:
         out.append(dict(

@@ -1,11 +1,13 @@
 """Index construction pipeline (reference L6: include/builders/builder.hpp).
 
-build_index(): FASTA list -> ccdBG (native C++) -> k-mer dictionary (mini)
--> hybrid color-set encoding -> Index. The reference's 4-step builder maps to:
+build_index(): FASTA list -> ccdBG (native C++) -> k-mer dictionary (mini,
+or cuckoo with dict_kind="cuckoo") -> hybrid color-set encoding -> Index.
+The reference's 4-step builder maps to:
 
     step 1 GGCAT           -> native fn_build_ccdbg
     step 2 u2c + encoding  -> dense u2c array + HybridEncoder
-    step 3 SSHash build    -> ops/minidict2.build_minidict2
+    step 3 SSHash build    -> ops/minidict2.build_minidict2, or
+                              unitig_kmers() + native cuckoo_build
     step 4 filenames       -> kept as a list
 
 check_index() reproduces the --check oracle (builder.hpp:221-277): every
@@ -23,6 +25,31 @@ from ..core.colorstores import HybridStore
 from ..index import Index
 
 
+def unitig_kmers(unitig_codes: np.ndarray, unitig_offs: np.ndarray, k: int):
+    """(canonical kmer keys u64, unitig_id vals u32) for every kmer of every
+    unitig, vectorized over the concatenated code array."""
+    km_all, _ = K.pack_kmers(unitig_codes, k)
+    n = len(km_all)
+    if n == 0:
+        return np.empty(0, np.uint64), np.empty(0, np.uint32)
+    pos = np.arange(n, dtype=np.int64)
+    uid = np.searchsorted(unitig_offs, pos, side="right") - 1
+    keep = (pos + k) <= unitig_offs[uid + 1]
+    keys = K.canonicalize(km_all[keep], k)
+    vals = uid[keep].astype(np.uint32)
+    return keys, vals
+
+
+def build_kmer_dict(unitig_codes, unitig_offs, unitig_cs, k):
+    """Cuckoo table mapping canonical kmer -> COLOR-SET id (u2c folded in at
+    build time, saving a gather a window) -> (table (nb, 4) u32, kmers)."""
+    from ..native import lib as native
+
+    keys, uids = unitig_kmers(unitig_codes, unitig_offs, k)
+    vals = np.asarray(unitig_cs, dtype=np.uint32)[uids.astype(np.int64)]
+    return native.cuckoo_build(keys, vals), len(keys)
+
+
 def assemble_index(
     *,
     k: int,
@@ -34,18 +61,28 @@ def assemble_index(
     unitig_cs: np.ndarray,
     cs_colors: np.ndarray,
     cs_offs: np.ndarray,
+    dict_kind: str = "mini",
     verbose: bool = False,
 ) -> Index:
     store = HybridStore.build(
         np.asarray(cs_colors, dtype=np.uint32), np.asarray(cs_offs), num_colors
     )
-    from ..ops.minidict2 import build_minidict2
+    table = mini_slots = mini_sec = None
+    mini_num_slots = 0
+    if dict_kind == "cuckoo":
+        table, num_kmers = build_kmer_dict(unitig_codes, unitig_offs,
+                                           unitig_cs, k)
+    elif dict_kind == "mini":
+        from ..ops.minidict2 import build_minidict2
 
-    d = build_minidict2(unitig_codes, unitig_offs, unitig_cs, k, m,
-                        verbose=verbose)
-    num_kmers = int(
-        np.clip(np.diff(np.asarray(unitig_offs, np.int64)) - k + 1, 0, None).sum()
-    )
+        d = build_minidict2(unitig_codes, unitig_offs, unitig_cs, k, m,
+                            verbose=verbose)
+        mini_slots, mini_sec, mini_num_slots = d.slots, d.sec_table, d.num_slots
+        num_kmers = int(np.clip(
+            np.diff(np.asarray(unitig_offs, np.int64)) - k + 1, 0, None).sum())
+    else:
+        raise ValueError(f"unknown dictionary kind {dict_kind!r} "
+                         "(mini or cuckoo)")
     return Index(
         kind=KIND_HYBRID,
         k=k,
@@ -53,15 +90,15 @@ def assemble_index(
         num_kmers=num_kmers,
         num_colors=num_colors,
         filenames=list(filenames),
-        dict_table=None,
+        dict_table=table,
         unitig_seq=K.pack2(unitig_codes),
         unitig_offs=np.asarray(unitig_offs, dtype=np.int64),
         u2c_csid=np.asarray(unitig_cs, dtype=np.uint32),
         color_store=store,
-        dict_kind="mini",
-        mini_slots=d.slots,
-        mini_sec=d.sec_table,
-        mini_num_slots=d.num_slots,
+        dict_kind=dict_kind,
+        mini_slots=mini_slots,
+        mini_sec=mini_sec,
+        mini_num_slots=mini_num_slots,
     )
 
 
@@ -118,7 +155,8 @@ def estimate_build_passes(filenames: list[str], ram_gib: float | None) -> int:
 
 def build_index(
     filenames: list[str], k: int = 31, m: int = 19, verbose: bool = False,
-    ram_gib: float | None = None, spill_dir: str | None = None,
+    ram_gib: float | None = None, dict_kind: str = "mini",
+    spill_dir: str | None = None,
 ) -> Index:
     """Full build from a list of FASTA(.gz) reference files (color order =
     file order, as the reference's -l list). ram_gib bounds the pair-table
@@ -129,14 +167,15 @@ def build_index(
     (reference -d temp-dir semantics, GGCAT.hpp:42-50). When passes > 1 and
     no spill_dir is given, a temp dir is created automatically (single-parse
     is the default: re-parsing a multi-GB gz corpus per pass dominated the
-    4,546-genome build wall-clock)."""
+    4,546-genome build wall-clock). dict_kind: "mini" (default) or
+    "cuckoo", the k-mer dictionary backend."""
     import shutil
     import tempfile
     import time
 
     from ..native import lib as native
 
-    if m % 2 == 0:
+    if dict_kind == "mini" and m % 2 == 0:
         # the mini dictionary's per-entry strand bit is only sound when no
         # m-mer can equal its own reverse complement, i.e. odd m; the
         # minimizer length is an internal space/speed knob (results are
@@ -179,6 +218,7 @@ def build_index(
         unitig_cs=g["unitig_cs"],
         cs_colors=g["cs_colors"],
         cs_offs=g["cs_offs"],
+        dict_kind=dict_kind,
         verbose=verbose,
     )
     if verbose:

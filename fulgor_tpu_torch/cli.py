@@ -4,7 +4,7 @@ distinct colour-set list with --deduplicate), `kmer-conservation` and
 `kmer-matches`, with the flags of fulgor_tpu's cli (reference
 tools/fulgor.cpp). Queries run on the card unless --device says otherwise.
 
-    python -m fulgor_tpu_torch.cli build -l list.txt -o idx [-k 31 -m 19]
+    python -m fulgor_tpu_torch.cli build -l list.txt -o idx [-k 31 -m 19] [--dict cuckoo]
     python -m fulgor_tpu_torch.cli pseudoalign -i idx.tfur -q reads.fq -o out [-r 0.8 | --deduplicate]
     python -m fulgor_tpu_torch.cli kmer-conservation -i idx.tfur -q reads.fq -o out
     python -m fulgor_tpu_torch.cli kmer-matches -i idx.tfur -q reads.fq -o out
@@ -44,7 +44,7 @@ def cmd_build(args):
         filenames = [ln.strip() for ln in f if ln.strip()]
     idx = build_index(
         filenames, k=args.k, m=args.m, verbose=args.verbose,
-        ram_gib=args.ram_gib,
+        ram_gib=args.ram_gib, dict_kind=args.dict_kind,
         spill_dir=(args.tmp_dir if args.tmp_dir != "." else None),
     )
     idx.save(out)
@@ -112,6 +112,10 @@ def main(argv=None):
                         "(default: the host's available RAM)")
     b.add_argument("-t", dest="threads", type=int, default=0,
                    help="cap build threads (0 = all cores)")
+    b.add_argument("--dict", dest="dict_kind", default="mini",
+                   choices=("mini", "cuckoo"),
+                   help="k-mer dictionary backend (mini: minimizer-positional,"
+                        " SSHash-class, default; cuckoo: quotient cuckoo)")
     b.add_argument("--verbose", action="store_true")
     b.add_argument("--check", action="store_true")
     b.add_argument("--force", action="store_true",

@@ -8,8 +8,10 @@ Composition (hybrid kind; meta/diff variants layer on the color-set store):
                        minimizer RUN (~6.5 k-mers) verified against the
                        unitig text -> ~2-4 B/k-mer on disk, the SSHash-class
                        space point (reference include/index.hpp:13-14).
-                       fulgor_tpu's alternative "cuckoo" table loads here
-                       but is not queried by this package.
+                       "cuckoo" (build --dict cuckoo) = quotient cuckoo
+                       table (ops/lookup.py, kernel K7): (nb, 4) u32 rows
+                       of two u64 slots whose value is the colour-set id,
+                       ~20 B/k-mer, two 16 B row gathers a window.
     unitig text      : concatenated 2-bit packed bases + base offsets
                        (the dictionary verifies windows against it).
     u2c              : dense uint32 unitig_id -> color_set_id.
@@ -110,18 +112,20 @@ class Index:
         return self._mini_obj
 
     def device_dict(self):
-        """(table, dparams) for ops/pipeline: the (slots, text32, skew) numpy
-        arrays plus the static probe parameters (m, num_slots)."""
+        """(table, dparams) for ops/pipeline: for mini the (slots, text32,
+        skew) numpy arrays plus the static probe parameters (m, num_slots);
+        for cuckoo the (nb, 4) table and None."""
+        if self.dict_kind == "cuckoo":
+            return self.dict_table, None
         d = self.minidict()
         return (d.slots, d.text32, d.sec_table), (self.m, self.mini_num_slots)
 
     def device_tables(self, device) -> dict:
         """The index's device state as tensors on `device`, u32 data as
-        torch.int32 bit patterns: slots (R, 24), text32 (N, 4), skew
-        (NR, 8) and the dense colour bits (S, C32)."""
+        torch.int32 bit patterns: the dense colour bits (S, C32) and, for
+        mini, slots (R, 24), text32 (N, 4) and skew (NR, 8); for cuckoo,
+        table (nb, 4)."""
         import torch
-
-        (slots, text32, skew), _ = self.device_dict()
 
         def as_i32(a):
             a = np.ascontiguousarray(a, dtype=np.uint32).view(np.int32)
@@ -129,23 +133,35 @@ class Index:
                 a = a.copy()
             return torch.from_numpy(a).to(device)
 
-        return {"slots": as_i32(slots), "text32": as_i32(text32),
-                "skew": as_i32(skew),
-                "dense": as_i32(self.dense_color_bits())}
+        tabs = {"dense": as_i32(self.dense_color_bits())}
+        if self.dict_kind == "cuckoo":
+            tabs["table"] = as_i32(self.dict_table)
+        else:
+            (slots, text32, skew), _ = self.device_dict()
+            tabs.update(slots=as_i32(slots), text32=as_i32(text32),
+                        skew=as_i32(skew))
+        return tabs
 
     def host_window_csids(self, codes: np.ndarray):
         """Exact host lookup over every k-window of a 1-D code array.
         -> (hit bool (Wk,), csid u32 (Wk,) — INVALID_U32 where no hit)."""
         from .constants import INVALID_U32
 
-        if self.dict_kind != "mini":
-            raise NotImplementedError(
-                "fulgor_tpu_torch queries the mini dictionary only; rebuild "
-                "the index with the default --dict mini")
-        from .ops.minidict2 import probe_windows_host
+        if self.dict_kind == "mini":
+            from .ops.minidict2 import probe_windows_host
 
-        hit, csid = probe_windows_host(self.minidict(), codes)
-        return hit, np.where(hit, csid, np.uint32(INVALID_U32))
+            hit, csid = probe_windows_host(self.minidict(), codes)
+            return hit, np.where(hit, csid, np.uint32(INVALID_U32))
+        from .core import kmers as K
+        from .query.host_lookup import lookup_host
+
+        km, valid = K.pack_kmers(np.asarray(codes, dtype=np.uint8), self.k)
+        out = np.full(len(km), INVALID_U32, dtype=np.uint32)
+        if len(km):
+            vals = lookup_host(self.dict_table, K.canonicalize(km, self.k))
+            hitm = valid & (vals != INVALID_U32)
+            out[hitm] = vals[hitm]
+        return out != INVALID_U32, out
 
     def color_sets_decoded(self):
         """(cat u32, offs i64) for all sets, cached. For meta/meta-diff

@@ -1,9 +1,14 @@
 """Query steps (counterparts of fulgor_tpu/ops/pipeline.py's jitted steps).
 
 Plain Python functions that launch the kernels in order on the tensors'
-device; on CPU tensors every step runs its plain version. `table` is the
-(slots, text32, skew) triple of Index.device_tables and `dparams` the
-static (m, num_slots) of Index.device_dict, as in fulgor_tpu.
+device; on CPU tensors every step runs its plain version. For a mini index
+`table` is the (slots, text32, skew) triple of Index.device_tables and
+`dparams` the static (m, num_slots) of Index.device_dict; for a cuckoo index
+`table` is the (nb, 4) table tensor and `dparams` None, as in fulgor_tpu.
+
+The packed steps take host-packed (codes2, bad) batches (ops/hostpack.py);
+the unpacked ones (the array API's) take (B, L) uint8 codes and pack them on
+the device with K8 first.
 """
 
 from __future__ import annotations
@@ -11,15 +16,22 @@ from __future__ import annotations
 import torch
 
 from .intersect import compact_runs, fi_and, km_scores, tu_mask
+from .lookup import cuckoo_lookup
 from .minidict2 import SKEW_CAND, VERIFY_BUDGET
-from .prep import window_prep
+from .prep import pack_codes, window_prep
 from .probe import minidict2_probe
 
 
 def query_window_csids_packed(table, codes2, bad, *, k: int, width: int,
                               dparams, probe_budget=None):
-    """K1 -> K2 over a packed batch -> (hit, csid, ovf), each (B, Wk)
-    (fulgor_tpu pipeline.py:232). Also the deferred redo's probe."""
+    """K1 -> K2 (mini), or K7 (cuckoo, dparams None), over a packed batch
+    -> (hit, csid, ovf), each (B, Wk) (fulgor_tpu pipeline.py:232 and
+    dict_probe_packed :107); the cuckoo table never overflows, so its ovf
+    is all false and probe_budget does not apply. Also the deferred redo's
+    probe."""
+    if dparams is None:
+        hit, csid = cuckoo_lookup(table, codes2, bad, width=width, k=k)
+        return hit, csid, torch.zeros_like(hit)
     m, num_slots = dparams
     vb, sc = probe_budget or (VERIFY_BUDGET, SKEW_CAND)
     slots, text32, skew = table
@@ -53,6 +65,21 @@ def query_tu_bits_packed(table, dense_bits, codes2, bad, minscore_tab, *,
         probe_budget=probe_budget)
     return (tu_mask(dense_bits, hit, csid, minscore_tab, num_colors),
             ovf.any(dim=1))
+
+
+def query_threshold_union_packed(table, dense_bits, codes2, bad, *, k: int,
+                                 width: int, num_colors: int, dparams,
+                                 probe_budget=None):
+    """K1 -> K2 (or K7) -> K5 -> (scores (B, C) int16, npos (B,) int32, ovf
+    (B,) bool) (fulgor_tpu pipeline.py:218): each colour's count of the
+    read's positive windows, u16 carried as int16 bit patterns (at most
+    Wk <= 1024), and the count of positive windows, for the host to
+    threshold."""
+    hit, csid, ovf = query_window_csids_packed(
+        table, codes2, bad, k=k, width=width, dparams=dparams,
+        probe_budget=probe_budget)
+    _hitw, scores = km_scores(dense_bits, hit, csid, num_colors)
+    return scores, hit.sum(dim=1, dtype=torch.int32), ovf.any(dim=1)
 
 
 def query_kmer_matches_packed2(table, dense_bits, codes2, bad, *, k: int,
@@ -109,3 +136,53 @@ def query_distinct_runs_packed(table, codes2, bad, *, k: int, width: int,
         probe_budget=probe_budget)
     run_csid, _start, _len, total, _npos = compact_runs(hit, csid, R)
     return run_csid, ovf.any(dim=1), total > R, csid
+
+
+# --------------------------------------------------------------------------
+# Unpacked steps (the array API): K8 packs the (B, L) codes on the device;
+# its words, viewed as bytes, are the host packer's codes2/bad, so the
+# packed steps take them unchanged. L is padded with bad bases to a
+# multiple of 32 first (bucket widths already are), and the per-window
+# outputs are cut back to L - k + 1.
+# --------------------------------------------------------------------------
+
+
+def _packed(codes):
+    """(B, L) uint8 codes -> (codes2, bad, padded width) via K8."""
+    B, L = codes.shape
+    W = -(-L // 32) * 32
+    if W != L:
+        codes = torch.cat([codes, codes.new_full((B, W - L), 4)], dim=1)
+    words, badw = pack_codes(codes)
+    return words.view(torch.uint8), badw.view(torch.uint8), W
+
+
+def query_window_csids(table, codes, *, k: int, dparams, probe_budget=None):
+    """K8 -> K1 -> K2 (or K8 -> K7) -> (hit, csid, ovf), each (B, L-k+1)
+    (fulgor_tpu pipeline.py:200)."""
+    codes2, bad, W = _packed(codes)
+    Wk = codes.shape[1] - k + 1
+    return tuple(t[:, :Wk] for t in query_window_csids_packed(
+        table, codes2, bad, k=k, width=W, dparams=dparams,
+        probe_budget=probe_budget))
+
+
+def query_full_intersection(table, dense_bits, codes, *, k: int, dparams,
+                            probe_budget=None):
+    """K8 -> K1 -> K2 (or K7) -> K3 -> (result bits (B, C32) int32, ovf
+    (B,) bool) (fulgor_tpu pipeline.py:179)."""
+    codes2, bad, W = _packed(codes)
+    return query_full_intersection_packed(
+        table, dense_bits, codes2, bad, k=k, width=W, dparams=dparams,
+        probe_budget=probe_budget)
+
+
+def query_threshold_union(table, dense_bits, codes, *, k: int,
+                          num_colors: int, dparams, probe_budget=None):
+    """K8 -> K1 -> K2 (or K7) -> K5 -> (scores (B, C) int16 bit patterns of
+    u16 counts, npos (B,) int32, ovf (B,) bool) (fulgor_tpu pipeline.py:190,
+    whose scores are the same counts as f32)."""
+    codes2, bad, W = _packed(codes)
+    return query_threshold_union_packed(
+        table, dense_bits, codes2, bad, k=k, width=W, num_colors=num_colors,
+        dparams=dparams, probe_budget=probe_budget)

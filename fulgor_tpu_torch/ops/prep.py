@@ -18,6 +18,10 @@ computes, all (B, Wk) with Wk = W - k + 1:
 u32 outputs are torch.int32 bit patterns; iL/iR/pL/pR int32; flags bool.
 `window_prep` launches csrc/prep.cu for CUDA tensors and runs the plain
 version `window_prep_plain` for CPU tensors.
+
+Also the array API's packing (kernel K8, counterpart of fulgor_tpu's
+_device_pack_codes): `pack_codes` launches csrc/pack.cu for CUDA tensors and
+runs `pack_codes_plain` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -130,3 +134,48 @@ def window_prep(codes2, bad, *, width: int, k: int, m: int):
     kernels.check(rc, "window_prep")
     kernels.launches["window_prep"] += 1
     return tuple(outs)
+
+
+def pack_codes_plain(codes):
+    """Plain PyTorch version of K8 (any device): (B, L) integer codes (0..3
+    valid, anything else bad) -> (words (B, ceil(L/16)) int32, 16 bases a
+    word LSB-first with bad bases as 0; badw (B, ceil(L/32)) int32, one bit
+    a base, set for bad bases and past L), u32 bit patterns."""
+    B, L = codes.shape
+    dev = codes.device
+    c = codes.to(torch.int64)
+    bad = (c < 0) | (c > 3)
+    c = torch.where(bad, 0, c)
+    Lw, Lb = -(-L // 16) * 16, -(-L // 32) * 32
+    c = torch.cat([c, c.new_zeros((B, Lw - L))], dim=1)
+    words = (c.reshape(B, Lw // 16, 16)
+             << (2 * torch.arange(16, device=dev))).sum(dim=2)
+    bad = torch.cat([bad, bad.new_ones((B, Lb - L))], dim=1).to(torch.int64)
+    badw = (bad.reshape(B, Lb // 32, 32)
+            << torch.arange(32, device=dev)).sum(dim=2)
+    return i32(words), i32(badw)
+
+
+def pack_codes(codes):
+    """2-bit packing of a (B, L) uint8 code batch on its device -> (words
+    (B, ceil(L/16)) int32, badw (B, ceil(L/32)) int32). At L % 32 == 0,
+    words.view(torch.uint8) and badw.view(torch.uint8) are the host
+    packer's codes2 (B, L/4) and bad (B, L/8)."""
+    if codes.device.type == "cpu":
+        return pack_codes_plain(codes)
+    if codes.device.type != "cuda":
+        raise ValueError(f"pack_codes: unsupported device {codes.device}")
+    if codes.dtype != torch.uint8 or codes.dim() != 2:
+        raise ValueError("pack_codes: codes must be a (B, L) uint8 tensor")
+    B, L = codes.shape
+    codes = codes.contiguous()
+    words = torch.empty((B, -(-L // 16)), dtype=torch.int32, device=codes.device)
+    badw = torch.empty((B, -(-L // 32)), dtype=torch.int32, device=codes.device)
+    if B == 0 or L == 0:
+        return words, badw
+    lib = kernels.library()
+    rc = lib.fulgor_pack_codes(codes.data_ptr(), B, L, words.data_ptr(),
+                               badw.data_ptr(), kernels.stream_of(codes))
+    kernels.check(rc, "pack_codes")
+    kernels.launches["pack_codes"] += 1
+    return words, badw
