@@ -31,8 +31,9 @@ last line, which is printed only when every phase passed:
               query_runs_tu_packed against its plain composition.
   5. e2e      on the card over every read, each path with the launch counts
               reset just before each timed run and checked just after:
-              FI pseudoalign_file (a warm-up, five timed runs to /dev/null,
-              median and spread, a profiled run for the card's busy share,
+              FI pseudoalign_file (a warm-up, three timed runs to /dev/null,
+              cut from five to make room for phase 9, median and spread, a
+              profiled run for the card's busy share,
               a run to a file); TU pseudoalign_file at tau 0.8 (a warm-up,
               three timed runs, a profiled run, an ascii and a binary run to
               files, which must hold the same records); kmer_matches_file (a
@@ -58,6 +59,28 @@ last line, which is printed only when every phase passed:
               pseudoalign_codes_dedup must equal FI, window_csids_codes
               must equal the host mirror on phase 7's reads, and
               pseudoalign_codes FI on the cuckoo engine must equal FI.
+  9. wide     a 4,546-colour index made from phase 3's (colour c stands for
+              genome c % 512: each simulated genome 8 or 9 clonal isolates;
+              the same dictionary, unitigs and colour-set ids), the
+              large-colour regime of fulgor_tpu's engine. K9 against its
+              plain version bit for bit on one batch's K3 rows at C32 =
+              143 and on seeded edge rows, at T in {1, 3, 64}, timed.
+              (a) The default strategy, runs fetch: FI (no K3) and TU(0.8)
+              (K4), each a warm-up, three timed runs (FI's key cache
+              emptied before each), a profiled run and a run to a file;
+              every record equal to the expansion (g -> g, g + 512, ...) of
+              the read's record in phase 5's files, on every read, and to
+              the host mirror on phase 7's reads. FI by the dense path
+              (use_runs_fetch off: K3, its rows fetched), three timed runs
+              and a run to a file equal to the runs fetch's, which decides
+              whether the runs fetch earns its place where the dense matrix
+              is allowed.
+              (b) The lists fetch forced (K3 or K4, then K9), FI and TU at
+              T_LIST = 64 (the run to a file profiled) and 3: each file
+              equal to (a)'s.
+              (c) dense_max_bytes=0: FI, TU(0.8) (K6 runs, no K4) and
+              --deduplicate with the dense matrix forbidden, each file equal
+              to (a)'s; the card's peak memory logged.
 
 The line before the last is one JSON object of per-kernel numbers; the
 last is {"ok": true, "device": {...}}.
@@ -91,9 +114,10 @@ from fulgor_tpu_torch.io.simulate import (
 from fulgor_tpu_torch.native import lib as native
 from fulgor_tpu_torch.ops import kernels
 from fulgor_tpu_torch.ops.hostpack import pack_reads_host
+from fulgor_tpu_torch.core.colorstores import HybridStore
 from fulgor_tpu_torch.ops.intersect import (
-    compact_runs, compact_runs_plain, fi_and, fi_and_plain, km_scores,
-    km_scores_plain, tu_mask, tu_mask_plain,
+    compact_runs, compact_runs_plain, fi_and, fi_and_plain, first_set_bits,
+    first_set_bits_plain, km_scores, km_scores_plain, tu_mask, tu_mask_plain,
 )
 from fulgor_tpu_torch.ops.lookup import (
     cuckoo_lookup, cuckoo_lookup_plain, cuckoo_row_gathers,
@@ -102,7 +126,9 @@ from fulgor_tpu_torch.ops.minidict2 import lookup_host_exact
 from fulgor_tpu_torch.ops.prep import (
     PREP_FIELDS, pack_codes, pack_codes_plain, window_prep, window_prep_plain,
 )
-from fulgor_tpu_torch.ops.pipeline import query_runs_tu_packed
+from fulgor_tpu_torch.ops.pipeline import (
+    query_runs_tu_packed, query_window_csids_packed,
+)
 from fulgor_tpu_torch.ops.probe import minidict2_probe, minidict2_probe_plain
 from fulgor_tpu_torch.ops.u32 import mix32, mulhi32, u32
 from fulgor_tpu_torch.query import engine as engine_mod
@@ -121,36 +147,63 @@ READ_LEN, WIDTH, BATCH = 150, 160, 32768
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12
 REPS_KERNEL, REPS_PLAIN = 20, 3
-PROFILE_ATTEMPTS = 3
-E2E_PASSES, TU_PASSES, KM_PASSES, KC_PASSES, DEDUP_PASSES = 5, 3, 3, 3, 3
+PROFILE_ATTEMPTS = 5
+# FI's timed passes were cut from five to three to make room for phase 9
+E2E_PASSES, TU_PASSES, KM_PASSES, KC_PASSES, DEDUP_PASSES = 3, 3, 3, 3, 3
 TAU = 0.8
 # the reference's Salmonella index: 4,546 genomes (C32 = 143)
 WIDE_C, WIDE_READS = 4546, 4096
-# the kernels each path must launch, and those it must not
+# the kernels each path must launch, and those it must not (no path of
+# the 512-colour engines takes the lists fetch, K9)
 MINI, CUCKOO = ("window_prep", "minidict2_probe"), ("cuckoo_lookup",)
+K9 = ("first_set_bits",)
 PATH_KERNELS = {
-    "fi": (MINI + ("fi_and",), CUCKOO + ("pack_codes",)),
-    "tu": (MINI + ("tu_mask",), CUCKOO + ("fi_and", "pack_codes")),
-    "km": (MINI + ("km_scores",), CUCKOO + ("pack_codes",)),
+    "fi": (MINI + ("fi_and",), CUCKOO + ("pack_codes",) + K9),
+    "tu": (MINI + ("tu_mask",), CUCKOO + ("fi_and", "pack_codes") + K9),
+    "km": (MINI + ("km_scores",), CUCKOO + ("pack_codes",) + K9),
     "kc": (MINI + ("compact_runs",),
-           CUCKOO + ("fi_and", "tu_mask", "km_scores", "pack_codes")),
+           CUCKOO + ("fi_and", "tu_mask", "km_scores", "pack_codes") + K9),
     "dedup": (MINI + ("compact_runs",),
-              CUCKOO + ("fi_and", "tu_mask", "km_scores", "pack_codes")),
-    "cuckoo_fi": (CUCKOO + ("fi_and",), MINI + ("pack_codes",)),
-    "cuckoo_tu": (CUCKOO + ("tu_mask",), MINI + ("fi_and", "pack_codes")),
-    "cuckoo_km": (CUCKOO + ("km_scores",), MINI + ("pack_codes",)),
-    "cuckoo_kc": (CUCKOO + ("compact_runs",), MINI + ("pack_codes",)),
-    "cuckoo_dedup": (CUCKOO + ("compact_runs",), MINI + ("pack_codes",)),
-    "array_fi": (("pack_codes",) + MINI + ("fi_and",), CUCKOO),
+              CUCKOO + ("fi_and", "tu_mask", "km_scores", "pack_codes") + K9),
+    "cuckoo_fi": (CUCKOO + ("fi_and",), MINI + ("pack_codes",) + K9),
+    "cuckoo_tu": (CUCKOO + ("tu_mask",), MINI + ("fi_and", "pack_codes") + K9),
+    "cuckoo_km": (CUCKOO + ("km_scores",), MINI + ("pack_codes",) + K9),
+    "cuckoo_kc": (CUCKOO + ("compact_runs",), MINI + ("pack_codes",) + K9),
+    "cuckoo_dedup": (CUCKOO + ("compact_runs",),
+                     MINI + ("pack_codes",) + K9),
+    "array_fi": (("pack_codes",) + MINI + ("fi_and",), CUCKOO + K9),
     "array_tu": (("pack_codes",) + MINI + ("km_scores",),
-                 CUCKOO + ("fi_and", "tu_mask")),
-    "array_dedup": (("pack_codes",) + MINI, CUCKOO + ("fi_and",)),
-    "array_csids": (("pack_codes",) + MINI, CUCKOO + ("fi_and",)),
-    "array_fi_cuckoo": (("pack_codes",) + CUCKOO + ("fi_and",), MINI),
+                 CUCKOO + ("fi_and", "tu_mask") + K9),
+    "array_dedup": (("pack_codes",) + MINI, CUCKOO + ("fi_and",) + K9),
+    "array_csids": (("pack_codes",) + MINI, CUCKOO + ("fi_and",) + K9),
+    "array_fi_cuckoo": (("pack_codes",) + CUCKOO + ("fi_and",), MINI + K9),
+    # phase 9, the 4,546-colour index: (a) runs fetch FI (no K3), TU by K4,
+    # and FI by the dense path (K3, its rows fetched) beside it; (b) the lists fetch, K3 or K4 then K9; (c) no dense matrix: FI, TU
+    # and --deduplicate on K6 alone
+    "wide_fi": (MINI + ("compact_runs",),
+                CUCKOO + ("fi_and", "tu_mask", "km_scores", "pack_codes")
+                + K9),
+    "wide_tu": (MINI + ("tu_mask",),
+                CUCKOO + ("fi_and", "compact_runs", "km_scores", "pack_codes")
+                + K9),
+    "wide_dense_fi": (MINI + ("fi_and",),
+                      CUCKOO + ("tu_mask", "compact_runs", "km_scores",
+                                "pack_codes") + K9),
+    "wide_lists_fi": (MINI + ("fi_and",) + K9,
+                      CUCKOO + ("tu_mask", "compact_runs", "km_scores",
+                                "pack_codes")),
+    "wide_lists_tu": (MINI + ("tu_mask",) + K9,
+                      CUCKOO + ("fi_and", "compact_runs", "km_scores",
+                                "pack_codes")),
 }
+for _p in ("wide_nd_fi", "wide_nd_tu", "wide_nd_dedup"):
+    PATH_KERNELS[_p] = PATH_KERNELS["wide_fi"]
 CUCKOO_PASSES = 3
 # the run budget forced on kc and dedup for their overflow runs
 FORCED_RUNS = 2
+# phase 9: timed runs of each default path, and the list length forced on
+# the lists fetch so that most reads take the row fetch
+WIDE_PASSES, FORCED_T = 3, 3
 
 
 def log(msg):
@@ -481,17 +534,23 @@ def phase_kernels(idx, eng, ceng, codes):
     del flush
 
     for r in rows:
-        b_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        o_ms = r["ops"] / INT_OPS_PER_S * 1e3
-        r["bound_ms"] = max(b_ms, o_ms)
-        r["bound_by"] = "bytes" if b_ms >= o_ms else "operations"
-        log(f"[kernels] {r['name']}: {r['ms']:.4f} ms cold L2, "
-            f"{r['warm_ms']:.4f} ms warm (plain {r['plain_ms']:.2f} ms), "
-            f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
-            f"({r['bytes'] / 1e6:.1f} MB), max_abs_err {r['max_abs_err']}")
-        if r["max_abs_err"] != 0:
-            raise RuntimeError(f"{r['name']} disagrees with its plain version")
+        finish_row(r, "kernels")
     return rows
+
+
+def finish_row(r, phase):
+    """A kernel's bound from its bytes and operations; log its row, and
+    raise unless it equalled its plain version."""
+    b_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
+    o_ms = r["ops"] / INT_OPS_PER_S * 1e3
+    r["bound_ms"] = max(b_ms, o_ms)
+    r["bound_by"] = "bytes" if b_ms >= o_ms else "operations"
+    log(f"[{phase}] {r['name']}: {r['ms']:.4f} ms cold L2, "
+        f"{r['warm_ms']:.4f} ms warm (plain {r['plain_ms']:.2f} ms), "
+        f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+        f"({r['bytes'] / 1e6:.1f} MB), max_abs_err {r['max_abs_err']}")
+    if r["max_abs_err"] != 0:
+        raise RuntimeError(f"{r['name']} disagrees with its plain version")
 
 
 def phase_cuckoo_pack(eng, ceng, chunk, c2, bd, prep, flush):
@@ -683,21 +742,21 @@ def phase_wide_c(eng, hit, csid):
 
 def device_busy(fn):
     """Run fn under torch.profiler. -> (wall s, device busy s or None,
-    {kernel name: (count, device ms)}); busy is the union of the card's
-    kernel and copy intervals, None where the profiler saw no device
-    activity."""
+    {kernel name: (count, device ms)}, fn's result); busy is the union of
+    the card's kernel and copy intervals, None where the profiler saw no
+    device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev:
-        return wall, None, {}
+        return wall, None, {}, out
     busy_us, end = 0.0, float("-inf")
     for s, e in sorted((e.time_range.start, e.time_range.end) for e in dev):
         if e > end:
@@ -708,7 +767,7 @@ def device_busy(fn):
         evs = [e for e in dev if f"{name}_kernel" in e.name]
         per_kernel[name] = (len(evs), sum(e.time_range.elapsed_us()
                                           for e in evs) / 1e3)
-    return wall, busy_us / 1e6, per_kernel
+    return wall, busy_us / 1e6, per_kernel, out
 
 
 _MIRROR: dict = {}  # one host-mirror worker's index and reads
@@ -753,8 +812,9 @@ def timed_passes(path, fn, passes):
         rates.append(st["num_reads"] / st["elapsed"])
         log(f"[{path}] pass {i + 1}: {st['num_reads']} reads in "
             f"{st['elapsed']:.3f} s: {rates[-1]:.1f} reads/s; parse "
-            f"{st['parse_sec']:.3f} s, query {st['query_sec']:.3f} s, redo "
-            f"{st['redo_sec']:.3f} s, write {st['write_sec']:.3f} s; "
+            f"{st['parse_sec']:.3f} s, query {st['query_sec']:.3f} s, host "
+            f"{st.get('host_sec', 0.0):.3f} s, redo {st['redo_sec']:.3f} s, "
+            f"write {st['write_sec']:.3f} s; "
             f"{st['num_redo']} reads redone ({st['num_redo_host']} on the "
             f"host); {st.get('num_mapped', '-')} mapped; launches {launches}")
         missing = [k for k in need if launches[k] <= 0]
@@ -770,7 +830,9 @@ def timed_passes(path, fn, passes):
 
 
 def profiled_pass(path, fn):
-    wall, busy, per_kernel = device_busy(fn)
+    """fn() under the profiler; logs the card's busy share and each
+    kernel's launches and device time. -> fn's result."""
+    wall, busy, per_kernel, out = device_busy(fn)
     if busy is None:
         log(f"[{path}] card busy share: not measured (the profiler recorded "
             "no device activity)")
@@ -779,6 +841,7 @@ def profiled_pass(path, fn):
             f"{busy * 1e3:.2f} ms (kernels and copies), idle share "
             f"{1 - busy / wall:.4f}; per kernel (launches, device ms) "
             f"{per_kernel}")
+    return out
 
 
 def read_binary_psa(path):
@@ -1131,7 +1194,301 @@ def phase_array(eng, ceng, codes, fi, tu, mirror):
     if any(bad.values()):
         raise RuntimeError(f"array API results differ: "
                            f"{ {k: v[:10] for k, v in bad.items()} }")
-    return dict(launches=launches, rates=rates)
+    return dict(launches=launches, rates=rates, fi=lists, tu=tu_lists)
+
+def expand_colours(cat, offs, G, C):
+    """Each ascending colour list L of (cat, offs) over G colours ->
+    {c < C : c % G in L}, ascending, as (cat, offs): the lists of the copies
+    g + G j follow one another in j, each a prefix of L in the last."""
+    reps = -(-C // G)
+    cat = np.asarray(cat, dtype=np.int64)
+    offs = np.asarray(offs, dtype=np.int64)
+    sizes = np.diff(offs)
+    sid = np.repeat(np.arange(len(sizes)), sizes)
+    in_last = cat < C - G * (reps - 1)
+    new_sizes = (reps - 1) * sizes + np.bincount(
+        sid[in_last], minlength=len(sizes))
+    new_offs = np.zeros(len(sizes) + 1, dtype=np.int64)
+    np.cumsum(new_sizes, out=new_offs[1:])
+    out = np.empty(int(new_offs[-1]), dtype=np.uint32)
+    dest = new_offs[sid] + np.arange(len(cat)) - offs[sid]  # copy j = 0
+    step = sizes[sid]
+    vals = cat.astype(np.uint32)
+    for j in range(reps - 1):
+        out[dest] = vals
+        dest += step
+        vals += np.uint32(G)
+    out[dest[in_last]] = vals[in_last]
+    return out, new_offs
+
+
+def phase_wide_index(idx):
+    """The WIDE_C-colour index of phase 3's: colour c stands for genome
+    c % G (G = phase 3's genome count), so each simulated genome is 8 or 9
+    clonal isolates, as real Salmonella collections hold near-identical
+    isolates; each set S becomes {c : c % G in S}. The dictionary, unitigs,
+    u2c and colour-set ids stay the same."""
+    t0 = time.perf_counter()
+    G = idx.num_colors
+    cat, offs = expand_colours(*idx.color_sets_decoded(), G, WIDE_C)
+    wide = dataclasses.replace(
+        idx, num_colors=WIDE_C,
+        filenames=[f"{idx.filenames[c % G]}#{c // G}" for c in range(WIDE_C)],
+        color_store=HybridStore.build(cat, offs, WIDE_C), _dense_bits=None,
+        _cs_cache=None, _row_memo=None, _row_pos=None, _row_n=0)
+    dcat, doffs = wide.color_sets_decoded()
+    if not (np.array_equal(dcat, cat) and np.array_equal(doffs, offs)):
+        raise RuntimeError("the wide colour store decodes to other sets")
+    log(f"[wide] {WIDE_C} colours (genome c % {G}), C32 "
+        f"{wide.words_per_set}: {wide.num_color_sets} colour sets of "
+        f"{len(cat)} members "
+        f"({len(cat) / len(idx.color_sets_decoded()[0]):.2f} x phase 3's), "
+        f"dense matrix "
+        f"{wide.num_color_sets * wide.words_per_set * 4} bytes, store "
+        f"{wide.color_store.num_bytes()} bytes; built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return wide
+
+
+def phase_first_set_bits(eng, weng, codes):
+    """K9 against first_set_bits_plain, bit for bit (tolerance 0): on one
+    BATCH-read batch's K3 rows over the wide index (C32 = 143) at T_LIST,
+    1 and 3, and on seeded random rows with empty rows, all-ones rows,
+    rows whose only bit is bit 31 and rows of more than T bits; timed on
+    the K3 rows at T_LIST. -> the kernel's row."""
+    dev = eng.device
+    T = engine_mod.T_LIST
+    chunk = np.full((BATCH, WIDTH), 4, dtype=np.uint8)
+    n = min(BATCH, len(codes))
+    chunk[:n, :READ_LEN] = codes[:n]
+    c2, bd = (torch.from_numpy(a).to(dev) for a in pack_reads_host(chunk))
+    hit, csid, _ovf = query_window_csids_packed(
+        eng.table, c2, bd, k=K, width=WIDTH, dparams=eng.dparams,
+        probe_budget=eng._pb)
+    rows = fi_and(weng.bits, hit, csid)
+    C32 = rows.shape[1]
+    g = torch.Generator(device=dev).manual_seed(WIDE_C)
+    edge = torch.randint(-(1 << 31), 1 << 31, (4096, C32), dtype=torch.int32,
+                         device=dev, generator=g)
+    edge[:1024] &= torch.randint(-(1 << 31), 1 << 31, (1024, C32),
+                                 dtype=torch.int32, device=dev, generator=g)
+    edge[1024:2048] *= torch.rand((1024, C32), device=dev, generator=g) < 0.01
+    edge[2048:2112] = 0
+    edge[2112:2176] = -1
+    edge[2176:2240] = 0
+    edge[2176:2240, -1] = -(1 << 31)  # bit 31 only
+    err = 0
+    for name, x in (("K3 rows", rows), ("edge rows", edge)):
+        for t in (T, 1, 3):
+            got = first_set_bits(x, t)
+            want = first_set_bits_plain(x, t)
+            torch.cuda.synchronize()
+            e = max_abs_err(got, want)
+            err = max(err, e)
+            log(f"[wide] first_set_bits on {x.shape[0]} {name} x {C32} "
+                f"words at T={t}: {int((got[0] > t).sum())} rows past T, "
+                f"{int((got[0] == 0).sum())} empty, up to {int(got[0].max())}"
+                f" colours a row, max_abs_err {e}")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    ms, warm = kernel_times(lambda: first_set_bits(rows, T), "first_set_bits",
+                            flush)
+    del flush
+    B = rows.shape[0]
+    return dict(
+        name="first_set_bits", source="fulgor_tpu_torch/csrc/lists.cu",
+        replaces="fulgor_tpu/ops/intersect.py:220", max_abs_err=err, ms=ms,
+        warm_ms=warm,
+        plain_ms=time_ms(lambda: first_set_bits_plain(rows, T), REPS_PLAIN),
+        # the words read once, count and T ids written; a popcount and a
+        # five-step scan a word, a find-first-set and a clear an id
+        bytes=B * C32 * 4 + B * (T + 1) * 4,
+        ops=B * C32 * 12 + B * T * 3)
+
+
+def same_records(a, b) -> bool:
+    """Two ascii pseudoalignment files hold the same records (compared
+    sorted by read id where their bytes differ)."""
+    return same_bytes(a, b) or records_by_qid(a) == records_by_qid(b)
+
+
+def check_expansion(path, lists, G, tool):
+    """Every record of the wide file `path` equals the expansion to WIDE_C
+    colours of the read's 512-colour list (phase 8's lists, equal to phase
+    5's files). -> the file's lines sorted by read id."""
+    t0 = time.perf_counter()
+    lines = records_by_qid(path)
+    n = len(lists)
+    if len(lines) != n:
+        raise RuntimeError(f"wide {tool}: {len(lines)} records for {n} reads")
+    step = 1 << 15
+    for lo in range(0, n, step):
+        hi = min(n, lo + step)
+        part = lists[lo:hi]
+        offs = np.zeros(hi - lo + 1, dtype=np.int64)
+        np.cumsum([len(x) for x in part], out=offs[1:])
+        cat, woffs = expand_colours(np.concatenate(part), offs, G, WIDE_C)
+        want = native.format_psa_ascii(np.arange(lo, hi, dtype=np.uint32),
+                                       cat, woffs)
+        if b"\n".join(lines[lo:hi]) + b"\n" != want:
+            bad = next(q for q, w in zip(range(lo, hi), want.splitlines())
+                       if lines[q] != w)
+            raise RuntimeError(f"wide {tool}: read {bad} is not the "
+                               "expansion of its 512-colour record")
+    log(f"[wide] {tool}: all {n} records equal the expansion of the "
+        f"512-colour records ({os.path.getsize(path) / 1e6:.1f} MB, checked "
+        f"in {time.perf_counter() - t0:.1f} s)")
+    return lines
+
+
+def phase_wide(idx, eng, codes, reads, tmp, array, mirror):
+    """Phase 9 on the WIDE_C-colour index: K9 on the card, then (a) the
+    default strategy (runs fetch FI, K4 TU), checked read by read against
+    the expansion of the 512-colour records and the host mirror; (b) the
+    lists fetch forced at T_LIST and FORCED_T; (c) no dense matrix. ->
+    K9's row, its launches, and the rates."""
+    wide = phase_wide_index(idx)
+    weng = QueryEngine(wide, device=eng.device)
+    log(f"[wide] engine: ekpu {weng._ekpu:.2f}, use_runs_fetch "
+        f"{weng.use_runs_fetch}, use_lists {weng.use_lists}, use_tu_runs "
+        f"{weng.use_tu_runs}, run budget {weng._runs_R}")
+    if not (weng.use_runs_fetch and not weng.use_lists
+            and not weng.use_tu_runs):
+        raise RuntimeError("the wide index does not take the runs fetch")
+    row = phase_first_set_bits(eng, weng, codes)
+    finish_row(row, "wide")
+    G = idx.num_colors
+    out = {t: os.path.join(tmp, f"wide_{t}.tsv") for t in ("fi", "tu")}
+    rates = {}
+    torch.cuda.reset_peak_memory_stats()
+    for tool, kw in (("fi", {}), ("tu", {"threshold": TAU})):
+        def fn(o=os.devnull, kw=kw):
+            # each pass starts with the runs fetch's key cache empty, as a
+            # user's first file does
+            weng._fi_key_cache.clear()
+            return weng.pseudoalign_file(reads, o, **kw)
+
+        fn()  # warm-up
+        r, _st, _l = timed_passes(f"wide_{tool}", fn, WIDE_PASSES)
+        rates[tool] = statistics.median(r)
+        profiled_pass(f"wide_{tool}", fn)
+        timed_passes(f"wide_{tool}", lambda fn=fn, o=out[tool]: fn(o), 1)
+    log(f"[wide] (a) peak card memory {torch.cuda.max_memory_allocated()} "
+        f"bytes; FI key cache {len(weng._fi_key_cache)} keys")
+    lines = {"fi": check_expansion(out["fi"], array["fi"], G, "FI"),
+             "tu": check_expansion(out["tu"], array["tu"], G, f"TU({TAU})")}
+    t0 = time.perf_counter()
+    qs = sorted(mirror)
+    bad = {}
+    for tool, colours in (
+            ("fi", lambda cs: weng._fi_from_csids(cs)),
+            ("tu", lambda cs: weng._tu_from_csids(cs, TAU))):
+        want = [colours(mirror[q][1]) for q in qs]
+        offs = np.zeros(len(qs) + 1, dtype=np.int64)
+        np.cumsum([len(w) for w in want], out=offs[1:])
+        want = native.format_psa_ascii(
+            np.array(qs, dtype=np.uint32), np.concatenate(want).astype(
+                np.uint32), offs).splitlines()
+        bad[tool] = [q for q, w in zip(qs, want) if lines[tool][q] != w]
+    log(f"[wide] host mirror on phase 7's {len(mirror)} reads: FI "
+        f"{len(bad['fi'])}, TU({TAU}) {len(bad['tu'])} differ "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if bad["fi"] or bad["tu"]:
+        raise RuntimeError(f"wide records differ from the host mirror: "
+                           f"{ {k: v[:10] for k, v in bad.items()} }")
+    del lines
+
+    # FI by the dense path on the same index (K3, its (B, C32) rows fetched)
+    weng.use_runs_fetch = False
+    path = os.path.join(tmp, "wide_dense_fi.tsv")
+    try:
+        def dfn(o=os.devnull):
+            return weng.pseudoalign_file(reads, o)
+
+        r, _st, _l = timed_passes("wide_dense_fi", dfn, WIDE_PASSES)
+        rates["dense_fi"] = statistics.median(r)
+        timed_passes("wide_dense_fi", lambda: dfn(path), 1)
+    finally:
+        weng.use_runs_fetch = True
+    same = same_records(path, out["fi"])
+    log(f"[wide] dense FI: the same records as the runs fetch's: {same}; "
+        f"median {rates['dense_fi']:.1f} reads/s against the runs fetch's "
+        f"{rates['fi']:.1f} ({rates['fi'] / rates['dense_fi']:.3f} x)")
+    if not same:
+        raise RuntimeError("the dense FI path differs from the runs fetch")
+    os.remove(path)
+
+    # (b) the lists fetch, forced
+    weng.use_lists = True
+    keep_T = engine_mod.T_LIST
+    launches9 = None
+    try:
+        for T in (keep_T, FORCED_T):
+            engine_mod.T_LIST = T
+            for tool, kw in (("fi", {}), ("tu", {"threshold": TAU})):
+                path = os.path.join(tmp, f"wide_lists{T}_{tool}.tsv")
+
+                def fn(kw=kw, o=path, T=T, tool=tool):
+                    run = lambda: weng.pseudoalign_file(reads, o, **kw)
+                    return (profiled_pass(f"wide_lists_{tool}", run)
+                            if T == keep_T else run())
+
+                _r, _st, launches = timed_passes(f"wide_lists_{tool}", fn, 1)
+                if tool == "fi" and T == keep_T:
+                    launches9 = launches
+                same = same_records(path, out[tool])
+                log(f"[wide] (b) lists fetch at T_LIST={T}, {tool}: the "
+                    f"same records as the runs fetch's: {same}")
+                if not same:
+                    raise RuntimeError(f"the lists fetch at T={T} differs "
+                                       f"({tool})")
+                os.remove(path)
+    finally:
+        engine_mod.T_LIST = keep_T
+        weng.use_lists = False
+
+    # (c) no dense matrix on the host or the card
+    del weng
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    nd = dataclasses.replace(wide, _dense_bits=None, _row_memo=None,
+                             _row_pos=None, _row_n=0)
+
+    def forbidden(*_a):
+        raise RuntimeError("the no-dense pass built the dense colour matrix")
+
+    nd.dense_color_bits = forbidden
+    nd.device_dense = forbidden
+    neng = QueryEngine(nd, device=eng.device, dense_max_bytes=0)
+    tables = sum(t.numel() * t.element_size() for t in neng.table)
+    if not (neng.use_runs_fetch and neng.use_tu_runs):
+        raise RuntimeError("dense_max_bytes=0 does not take the no-dense "
+                           "paths")
+    runs = (("fi", {}, out["fi"]), ("tu", {"threshold": TAU}, out["tu"]),
+            ("dedup", {"deduplicate": True}, out["fi"]))
+    for tool, kw, ref in runs:
+        path = os.path.join(tmp, f"wide_nd_{tool}.tsv")
+        _r, st, _l = timed_passes(
+            f"wide_nd_{tool}",
+            lambda kw=kw, o=path: neng.pseudoalign_file(reads, o, **kw), 1)
+        same = same_records(path, ref)
+        log(f"[wide] (c) no dense matrix, {tool}: the same records as (a)'s "
+            f"{'FI' if tool == 'dedup' else tool.upper()}: {same}; "
+            f"{st.get('num_run_ovf', 0)} reads past the run budget")
+        if not same:
+            raise RuntimeError(f"the no-dense {tool} output differs")
+        os.remove(path)
+    if neng._bits is not None or nd._dense_bits is not None:
+        raise RuntimeError("a dense colour matrix exists after the no-dense "
+                           "pass")
+    dense = nd.num_color_sets * nd.words_per_set * 4
+    log(f"[wide] (c) peak card memory {torch.cuda.max_memory_allocated()} "
+        f"bytes, {torch.cuda.max_memory_allocated() - base} above the "
+        f"{base} held before the pass; the engine's tables "
+        f"{tables} bytes; the dense matrix would be {dense} bytes; engine "
+        f"_bits None, index _dense_bits None, {nd._row_n} rows decoded on "
+        f"demand")
+    return dict(row=row, launches=launches9, rates=rates)
 
 
 def main():
@@ -1161,6 +1518,8 @@ def main():
         mirror = phase_mirror(idx, codes, names, tmp, args.seed, fi, tu, km,
                               kc, dedup)
         array = phase_array(eng, ceng, codes, fi, tu, mirror)
+        wide = phase_wide(idx, eng, codes, reads, tmp, array, mirror)
+        rows.append(wide["row"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all; end to end "
@@ -1170,10 +1529,13 @@ def main():
         f"(medians); cuckoo FI {cuckoo['rate']:.1f}, TU({TAU}) "
         f"{cuckoo['rate_tu']:.1f} reads/s (medians); array API "
         f"{ {k: round(v, 1) for k, v in array['rates'].items()} } reads/s "
-        f"(one call each)")
+        f"(one call each); {WIDE_C} colours: FI {wide['rates']['fi']:.1f} "
+        f"(dense FI {wide['rates']['dense_fi']:.1f}), TU({TAU}) "
+        f"{wide['rates']['tu']:.1f} reads/s (medians)")
     # each kernel's launches on its own path's last timed run
     path_of = {"tu_mask": tu, "km_scores": km, "compact_runs": kc,
-               "cuckoo_lookup": cuckoo, "pack_codes": array}
+               "cuckoo_lookup": cuckoo, "pack_codes": array,
+               "first_set_bits": wide}
     out = []
     for r in rows:
         out.append(dict(

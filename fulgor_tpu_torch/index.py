@@ -16,9 +16,11 @@ Composition (hybrid kind; meta/diff variants layer on the color-set store):
                        (the dictionary verifies windows against it).
     u2c              : dense uint32 unitig_id -> color_set_id.
     color sets       : one of four stores (core/colorstores.py: hybrid /
-                       meta / diff / meta-diff); expanded at load into a
+                       meta / diff / meta-diff); expanded on demand into a
                        dense bitset matrix (num_sets, ceil(C/32)) for the
-                       device.
+                       paths that read it (device_dense), or into the rows
+                       a query touches (color_rows) where the matrix is
+                       too large.
     filenames        : reference names in color-id order.
 """
 
@@ -31,6 +33,20 @@ import numpy as np
 from . import INDEX_VERSION
 from .core import container
 from .core.colorstores import STORE_CLASSES
+
+# color_rows' memo of decoded rows is reset when it would pass this size
+ROW_MEMO_BYTES = 4 << 30
+
+
+def _as_i32(a, device):
+    """A u32 numpy array as a torch.int32 tensor of its bit patterns on
+    `device`."""
+    import torch
+
+    a = np.ascontiguousarray(a, dtype=np.uint32).view(np.int32)
+    if not a.flags.writeable:  # memory-mapped from the index file
+        a = a.copy()
+    return torch.from_numpy(a).to(device)
 
 
 def _print_nested(d, indent=0):
@@ -79,6 +95,9 @@ class Index:
     _dense_bits: np.ndarray | None = field(default=None, repr=False)
     _cs_cache: tuple | None = field(default=None, repr=False)
     _mini_obj: object | None = field(default=None, repr=False)
+    _row_memo: np.ndarray | None = field(default=None, repr=False)
+    _row_pos: np.ndarray | None = field(default=None, repr=False)
+    _row_n: int = field(default=0, repr=False)
 
     # ------------------------------------------------ basic accessors
 
@@ -121,26 +140,21 @@ class Index:
         return (d.slots, d.text32, d.sec_table), (self.m, self.mini_num_slots)
 
     def device_tables(self, device) -> dict:
-        """The index's device state as tensors on `device`, u32 data as
-        torch.int32 bit patterns: the dense colour bits (S, C32) and, for
-        mini, slots (R, 24), text32 (N, 4) and skew (NR, 8); for cuckoo,
-        table (nb, 4)."""
-        import torch
-
-        def as_i32(a):
-            a = np.ascontiguousarray(a, dtype=np.uint32).view(np.int32)
-            if not a.flags.writeable:  # memory-mapped from the index file
-                a = a.copy()
-            return torch.from_numpy(a).to(device)
-
-        tabs = {"dense": as_i32(self.dense_color_bits())}
+        """The index's dictionary as tensors on `device`, u32 data as
+        torch.int32 bit patterns: for mini, slots (R, 24), text32 (N, 4) and
+        skew (NR, 8); for cuckoo, table (nb, 4). The colour bits are apart
+        (device_dense): only the paths that read them upload them."""
         if self.dict_kind == "cuckoo":
-            tabs["table"] = as_i32(self.dict_table)
-        else:
-            (slots, text32, skew), _ = self.device_dict()
-            tabs.update(slots=as_i32(slots), text32=as_i32(text32),
-                        skew=as_i32(skew))
-        return tabs
+            return {"table": _as_i32(self.dict_table, device)}
+        (slots, text32, skew), _ = self.device_dict()
+        return {"slots": _as_i32(slots, device),
+                "text32": _as_i32(text32, device),
+                "skew": _as_i32(skew, device)}
+
+    def device_dense(self, device):
+        """The dense colour bits (num_color_sets, C32) as an int32 tensor on
+        `device` (dense_color_bits, uploaded)."""
+        return _as_i32(self.dense_color_bits(), device)
 
     def host_window_csids(self, codes: np.ndarray):
         """Exact host lookup over every k-window of a 1-D code array.
@@ -191,6 +205,10 @@ class Index:
 
     # ------------------------------------------------ dense device view
 
+    @property
+    def words_per_set(self) -> int:
+        return (self.num_colors + 31) // 32
+
     def dense_color_bits(self) -> np.ndarray:
         """(num_color_sets, ceil(C/32)) uint32 bitset matrix (cached).
 
@@ -205,6 +223,45 @@ class Index:
                 cat, offs[:-1], offs[1:], self.num_colors
             )
         return self._dense_bits
+
+    def color_rows(self, csids: np.ndarray) -> np.ndarray:
+        """(len(csids), C32) uint32 bitset rows of the given sets, decoded
+        on demand (fulgor_tpu index.py:215): where the dense matrix is too
+        large to build, only the sets a query stream touches are decoded.
+        The rows live in a growing memo with a csid -> row map, so the
+        fan-out is one fancy index; when the memo would pass ROW_MEMO_BYTES
+        it is reset and the working set decodes again. Rows come from the
+        dense matrix instead where it exists."""
+        if self._dense_bits is not None:
+            return self._dense_bits[np.asarray(csids, dtype=np.int64)]
+        W = self.words_per_set
+        if self._row_memo is None:
+            self._row_memo = np.empty((4096, W), dtype=np.uint32)
+            self._row_pos = np.full(self.num_color_sets, -1, dtype=np.int64)
+            self._row_n = 0
+        csids = np.asarray(csids, dtype=np.int64)
+        pos = self._row_pos
+        new = np.unique(csids[pos[csids] < 0])
+        if len(new):
+            if (self._row_n + len(new)) * 4 * W > ROW_MEMO_BYTES:
+                self._row_memo = np.empty((4096, W), dtype=np.uint32)
+                pos.fill(-1)
+                self._row_n = 0
+                new = np.unique(csids)
+            need = self._row_n + len(new)
+            if need > len(self._row_memo):
+                arr = np.empty((max(need, 2 * len(self._row_memo)), W),
+                               dtype=np.uint32)
+                arr[: self._row_n] = self._row_memo[: self._row_n]
+                self._row_memo = arr
+            from .native import lib as _native
+
+            cat, offs = self.color_sets_decoded()
+            self._row_memo[self._row_n: need] = _native.dense_bits(
+                cat, offs[new], offs[new + 1], self.num_colors)
+            pos[new] = self._row_n + np.arange(len(new), dtype=np.int64)
+            self._row_n = need
+        return self._row_memo[pos[csids]]
 
     # ------------------------------------------------ serialization
 

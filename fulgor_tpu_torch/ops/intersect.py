@@ -24,6 +24,10 @@ the read's run count and positive-window count. It feeds kmer-conservation
 (query_conservation_runs_packed), --deduplicate (query_distinct_runs_packed)
 and query_runs_tu_packed.
 
+K9 `first_set_bits` replaces first_set_bits: each (B, C32) result row's
+colour count and its first T colour ids, ascending, the lists fetch of
+query_fi_lists_packed and query_tu_lists_packed.
+
 dense (S, C32), csid (B, Wk) int32 bit patterns, hit (B, Wk) bool. Each
 wrapper launches its csrc/ kernel for CUDA tensors and runs the plain
 version for CPU tensors; it never falls back.
@@ -264,3 +268,70 @@ def compact_runs(hit, csid, R: int):
     kernels.check(rc, "compact_runs")
     kernels.launches["compact_runs"] += 1
     return run_csid, run_start, run_len, total, npos
+
+
+def _popcount(x):
+    """Set bits of each u32 held in an int64 tensor."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def first_set_bits_plain(bits, T: int):
+    """Plain PyTorch first_set_bits (any device), as fulgor_tpu computes it,
+    in int64: the words' popcounts and their cumulative sum; for each slot
+    t the word holding the row's t-th set bit (the count of cumulative sums
+    <= t) and the bit's place in that word by a 5-step binary search.
+    -> (count (B,) int32, lists (B, T) int32, 0 past the count)."""
+    B, C32 = bits.shape
+    dev = bits.device
+    if C32 == 0:
+        return (torch.zeros(B, dtype=torch.int32, device=dev),
+                torch.zeros((B, T), dtype=torch.int32, device=dev))
+    words = bits.to(torch.int64) & 0xFFFFFFFF
+    pc = _popcount(words)
+    cum = torch.cumsum(pc, dim=1)
+    total = cum[:, -1]
+    t = torch.arange(T, dtype=torch.int64, device=dev).expand(B, T)
+    widx = torch.searchsorted(cum, t.contiguous(), right=True).clamp(
+        max=C32 - 1)
+    w = words.gather(1, widx)
+    j = t - (cum - pc).gather(1, widx)
+    posn = torch.zeros_like(w)
+    for width in (16, 8, 4, 2, 1):
+        low = (1 << width) - 1
+        c = _popcount(w & low)
+        hi = j >= c
+        j = torch.where(hi, j - c, j)
+        posn = posn + torch.where(hi, width, 0)
+        w = torch.where(hi, w >> width, w & low)
+    lists = torch.where(t < total[:, None], widx * 32 + posn, 0)
+    return total.to(torch.int32), lists.to(torch.int32)
+
+
+def first_set_bits(bits, T: int):
+    """Each row's colour count and first T colour ids, ascending ->
+    (count (B,) int32, may exceed T; lists (B, T) int32, 0 past the
+    count). bits: (B, C32) int32 bit patterns of u32 words."""
+    if bits.device.type == "cpu":
+        return first_set_bits_plain(bits, T)
+    if bits.device.type != "cuda":
+        raise ValueError(f"first_set_bits: unsupported device {bits.device}")
+    if bits.dim() != 2 or bits.dtype != torch.int32 or not bits.is_contiguous():
+        raise ValueError("first_set_bits: bits must be a contiguous (B, C32) "
+                         "int32 tensor")
+    if T < 1:
+        raise ValueError("first_set_bits: needs T >= 1")
+    B, C32 = bits.shape
+    count = torch.empty(B, dtype=torch.int32, device=bits.device)
+    lists = torch.empty((B, T), dtype=torch.int32, device=bits.device)
+    if B == 0 or C32 == 0:
+        return count.zero_(), lists.zero_()
+    lib = kernels.library()
+    rc = lib.fulgor_first_set_bits(bits.data_ptr(), B, C32, T,
+                                   count.data_ptr(), lists.data_ptr(),
+                                   kernels.stream_of(bits))
+    kernels.check(rc, "first_set_bits")
+    kernels.launches["first_set_bits"] += 1
+    return count, lists

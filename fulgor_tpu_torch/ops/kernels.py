@@ -10,8 +10,8 @@ Each C entry point launches on the stream it is given and returns
 cudaGetLastError(); `check` raises on a non-zero code. `launches` counts
 the kernel launches made by the wrappers in ops/prep.py (K1 window_prep,
 K8 pack_codes), ops/probe.py (K2 minidict2_probe), ops/intersect.py (K3
-fi_and, K4 tu_mask, K5 km_scores, K6 compact_runs) and ops/lookup.py (K7
-cuckoo_lookup): one per launch, nowhere else.
+fi_and, K4 tu_mask, K5 km_scores, K6 compact_runs, K9 first_set_bits) and
+ops/lookup.py (K7 cuckoo_lookup): one per launch, nowhere else.
 """
 
 from __future__ import annotations
@@ -28,12 +28,12 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
 LIB = os.path.join(BUILD, "libfulgor_kernels.so")
 SOURCES = ("prep.cu", "probe.cu", "intersect.cu", "union.cu", "runs.cu",
-           "cuckoo.cu", "pack.cu")
+           "cuckoo.cu", "pack.cu", "lists.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 launches = {"window_prep": 0, "minidict2_probe": 0, "fi_and": 0,
             "tu_mask": 0, "km_scores": 0, "compact_runs": 0,
-            "cuckoo_lookup": 0, "pack_codes": 0}
+            "cuckoo_lookup": 0, "pack_codes": 0, "first_set_bits": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -115,10 +115,12 @@ def library():
         lib.fulgor_compact_runs.argtypes = [P, P, I, I, I] + [P] * 5 + [P]
         lib.fulgor_cuckoo_lookup.argtypes = [P, I, P, P, I, I, I, P, P, P]
         lib.fulgor_pack_codes.argtypes = [P, I, I, P, P, P]
+        lib.fulgor_first_set_bits.argtypes = [P, I, I, I, P, P, P]
         for fn in (lib.fulgor_window_prep, lib.fulgor_minidict2_probe,
                    lib.fulgor_fi_and, lib.fulgor_tu_mask,
                    lib.fulgor_km_scores, lib.fulgor_compact_runs,
-                   lib.fulgor_cuckoo_lookup, lib.fulgor_pack_codes):
+                   lib.fulgor_cuckoo_lookup, lib.fulgor_pack_codes,
+                   lib.fulgor_first_set_bits):
             fn.restype = I
         _lib = lib
         return lib

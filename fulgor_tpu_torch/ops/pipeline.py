@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from .intersect import compact_runs, fi_and, km_scores, tu_mask
+from .intersect import compact_runs, fi_and, first_set_bits, km_scores, tu_mask
 from .lookup import cuckoo_lookup
 from .minidict2 import SKEW_CAND, VERIFY_BUDGET
 from .prep import pack_codes, window_prep
@@ -65,6 +65,34 @@ def query_tu_bits_packed(table, dense_bits, codes2, bad, minscore_tab, *,
         probe_budget=probe_budget)
     return (tu_mask(dense_bits, hit, csid, minscore_tab, num_colors),
             ovf.any(dim=1))
+
+
+def query_fi_lists_packed(table, dense_bits, codes2, bad, *, k: int,
+                          width: int, T: int, dparams, probe_budget=None):
+    """K1 -> K2 (or K7) -> K3 -> K9 -> (count (B,) int32, lists (B, T)
+    int32 ascending, 0 past the count, bits (B, C32) int32, ovf (B,) bool)
+    (fulgor_tpu pipeline.py:249): full intersection with each read's first
+    T colours compacted on the card; the caller fetches `bits` rows only
+    for reads whose count passes T."""
+    bits, ovf = query_full_intersection_packed(
+        table, dense_bits, codes2, bad, k=k, width=width, dparams=dparams,
+        probe_budget=probe_budget)
+    count, lists = first_set_bits(bits, T)
+    return count, lists, bits, ovf
+
+
+def query_tu_lists_packed(table, dense_bits, codes2, bad, minscore_tab, *,
+                          k: int, width: int, num_colors: int, T: int,
+                          dparams, probe_budget=None):
+    """K1 -> K2 (or K7) -> K4 -> K9 -> (count (B,) int32, lists (B, T)
+    int32, maskbits (B, C32) int32, ovf (B,) bool) (fulgor_tpu
+    pipeline.py:264): threshold union with the passing colours' first T
+    ids compacted on the card."""
+    maskbits, ovf = query_tu_bits_packed(
+        table, dense_bits, codes2, bad, minscore_tab, k=k, width=width,
+        num_colors=num_colors, dparams=dparams, probe_budget=probe_budget)
+    count, lists = first_set_bits(maskbits, T)
+    return count, lists, maskbits, ovf
 
 
 def query_threshold_union_packed(table, dense_bits, codes2, bad, *, k: int,

@@ -115,7 +115,7 @@ def test_unpacked_steps_match_reference(corpus, kind, step):
     chunk = np.full((256, 64), 4, dtype=np.uint8)
     fit = np.flatnonzero(lens <= 64)
     chunk[: len(fit)] = codes[fit, :64]
-    jd, td = jnp.asarray(j.dense_color_bits()), t.device_tables("cpu")["dense"]
+    jd, td = jnp.asarray(j.dense_color_bits()), t.device_dense("cpu")
     C = j.num_colors
     kw = dict(k=K_LEN, dparams=dparams)
     if step == "csids":

@@ -147,7 +147,7 @@ def test_index_file_carries_across(indexes, tmp_path):
     table, dparams = tidx.device_dict()
     assert dparams is None and table is tidx.dict_table
     tabs = tidx.device_tables("cpu")
-    assert set(tabs) == {"table", "dense"}
+    assert set(tabs) == {"table"}
     assert tabs["table"].dtype == torch.int32
     np.testing.assert_array_equal(tabs["table"].numpy().view(np.uint32),
                                   idx.dict_table)

@@ -154,7 +154,7 @@ def test_cuckoo_steps_match_reference(corpus, step):
     tabs = idx.device_tables("cpu")
     jt, jd = jnp.asarray(idx.dict_table), jnp.asarray(idx.dense_color_bits())
     jc, jb = jnp.asarray(codes2), jnp.asarray(bad)
-    tt, td = tabs["table"], tabs["dense"]
+    tt, td = tabs["table"], idx.device_dense("cpu")
     tc, tb = torch.from_numpy(codes2), torch.from_numpy(bad)
     kw = dict(k=idx.k, width=W, dparams=None)
     C, Wk = idx.num_colors, W - idx.k + 1

@@ -206,7 +206,8 @@ def test_query_step_matches_reference(corpus):
             probe_budget=pb)
         tabs = idx.device_tables("cpu")
         got = TP.query_full_intersection_packed(
-            (tabs["slots"], tabs["text32"], tabs["skew"]), tabs["dense"],
+            (tabs["slots"], tabs["text32"], tabs["skew"]),
+            idx.device_dense("cpu"),
             torch.from_numpy(codes2), torch.from_numpy(bad), k=idx.k,
             width=96, dparams=dparams, probe_budget=pb)
         np.testing.assert_array_equal(got[0].numpy().view(np.uint32),

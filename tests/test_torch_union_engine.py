@@ -216,7 +216,8 @@ def _step_inputs(tmp):
     jargs = (tuple(jnp.asarray(a) for a in table_np),
              jnp.asarray(idx.dense_color_bits()), jnp.asarray(codes2),
              jnp.asarray(bad))
-    targs = ((tabs["slots"], tabs["text32"], tabs["skew"]), tabs["dense"],
+    targs = ((tabs["slots"], tabs["text32"], tabs["skew"]),
+             idx.device_dense("cpu"),
              torch.from_numpy(codes2), torch.from_numpy(bad))
     return idx, dparams, jargs, targs
 
