@@ -81,6 +81,22 @@ last line, which is printed only when every phase passed:
               (c) dense_max_bytes=0: FI, TU(0.8) (K6 runs, no K4) and
               --deduplicate with the dense matrix forbidden, each file equal
               to (a)'s; the card's peak memory logged.
+ 10. probes   the opt-in probes. On phase 4's batch, bit for bit against
+              the plain versions: K2's stage1 mode at vb 1 and 2 and its
+              want_entry mode; K10 staged_probe at (2, 8, 4, 16) and
+              (1, 8, 4, 2) (tier B2 and its overflow past B / 8 heavy
+              reads), its light, heavy and past-B2 reads logged, and every
+              window it decides equal to K2 at (8, 4); K11 anchored_probe
+              at the default (RA, RU) and (4, 2), no hit in ovf and csid
+              equal to K2's wherever both hit; both probes timed whole
+              (the device time of every kernel a call launches, K2's
+              included, L2 cold and warm; and the call on the stream, launch
+              gaps included). End to end, FI and TU(0.8) under the staged probe
+              (FULGOR_PROBE_BUDGET=2,8,4,16, a new engine) and the
+              anchored one (pipeline.ANCHORED_PROBE on, restored after):
+              each a warm-up, three timed passes (the staged ones in turns
+              with one-pass passes of the same tool) and a profiled pass to
+              a file, which must hold phase 5's FI or phase 6's TU records.
 
 The line before the last is one JSON object of per-kernel numbers; the
 last is {"ok": true, "device": {...}}.
@@ -94,6 +110,7 @@ import json
 import multiprocessing
 import os
 import platform
+import re
 import shutil
 import statistics
 import subprocess
@@ -122,7 +139,13 @@ from fulgor_tpu_torch.ops.intersect import (
 from fulgor_tpu_torch.ops.lookup import (
     cuckoo_lookup, cuckoo_lookup_plain, cuckoo_row_gathers,
 )
-from fulgor_tpu_torch.ops.minidict2 import lookup_host_exact
+from fulgor_tpu_torch.ops import pipeline as pipeline_mod
+from fulgor_tpu_torch.ops.anchored import (
+    minidict2_anchored_probe, minidict2_anchored_probe_plain,
+)
+from fulgor_tpu_torch.ops.minidict2 import (
+    anchor_budget, lookup_host_exact, reprobe_budget,
+)
 from fulgor_tpu_torch.ops.prep import (
     PREP_FIELDS, pack_codes, pack_codes_plain, window_prep, window_prep_plain,
 )
@@ -130,6 +153,9 @@ from fulgor_tpu_torch.ops.pipeline import (
     query_runs_tu_packed, query_window_csids_packed,
 )
 from fulgor_tpu_torch.ops.probe import minidict2_probe, minidict2_probe_plain
+from fulgor_tpu_torch.ops.staged import (
+    minidict2_staged_probe, minidict2_staged_probe_plain,
+)
 from fulgor_tpu_torch.ops.u32 import mix32, mulhi32, u32
 from fulgor_tpu_torch.query import engine as engine_mod
 from fulgor_tpu_torch.query.engine import QueryEngine, conservation_runs
@@ -198,12 +224,32 @@ PATH_KERNELS = {
 }
 for _p in ("wide_nd_fi", "wide_nd_tu", "wide_nd_dedup"):
     PATH_KERNELS[_p] = PATH_KERNELS["wide_fi"]
+# phase 10: the opt-in probes, K10 and K11, which no other path launches
+PROBES = ("staged_probe", "anchored_probe")
+for _p, (_need, _forbid) in list(PATH_KERNELS.items()):
+    PATH_KERNELS[_p] = (_need, _forbid + PROBES)
+for _probe, _other in (("staged", "anchored_probe"),
+                       ("anchored", "staged_probe")):
+    PATH_KERNELS[f"{_probe}_fi"] = (
+        MINI + (f"{_probe}_probe", "fi_and"),
+        CUCKOO + (_other, "tu_mask", "km_scores", "compact_runs",
+                  "pack_codes") + K9)
+    PATH_KERNELS[f"{_probe}_tu"] = (
+        MINI + (f"{_probe}_probe", "tu_mask"),
+        CUCKOO + (_other, "fi_and", "km_scores", "compact_runs",
+                  "pack_codes") + K9)
 CUCKOO_PASSES = 3
 # the run budget forced on kc and dedup for their overflow runs
 FORCED_RUNS = 2
 # phase 9: timed runs of each default path, and the list length forced on
 # the lists fetch so that most reads take the row fetch
 WIDE_PASSES, FORCED_T = 3, 3
+# phase 10: K10's budgets (vb1, vb2, sc, RU), the second forcing tier B2
+# and its overflow past BH heavy reads, the first the end-to-end one; K11's
+# (RA, RU), None for anchor_budget/reprobe_budget; timed passes a path
+STAGED_BUDGETS = ((2, 8, 4, 16), (1, 8, 4, 2))
+ANCHORED_BUDGETS = ((None, None), (4, 2))
+PROBE_PASSES = 3
 
 
 def log(msg):
@@ -740,6 +786,12 @@ def phase_wide_c(eng, hit, csid):
     return err4, err5
 
 
+def kernel_pattern(name):
+    """The device kernels of launch count `name`: `{name}_kernel`, or
+    `{name}_<step>_kernel` for a wrapper that launches several."""
+    return re.compile(rf"\b{name}(_\w+)?_kernel\b")
+
+
 def device_busy(fn):
     """Run fn under torch.profiler. -> (wall s, device busy s or None,
     {kernel name: (count, device ms)}, fn's result); busy is the union of
@@ -764,7 +816,8 @@ def device_busy(fn):
             end = e
     per_kernel = {}
     for name in kernels.launches:
-        evs = [e for e in dev if f"{name}_kernel" in e.name]
+        pat = kernel_pattern(name)
+        evs = [e for e in dev if pat.search(e.name)]
         per_kernel[name] = (len(evs), sum(e.time_range.elapsed_us()
                                           for e in evs) / 1e3)
     return wall, busy_us / 1e6, per_kernel, out
@@ -1491,6 +1544,259 @@ def phase_wide(idx, eng, codes, reads, tmp, array, mirror):
     return dict(row=row, launches=launches9, rates=rates)
 
 
+def call_ms(fn, names, reps, flush=None):
+    """(Mean device milliseconds of one call of fn: every kernel of the
+    launch counts `names` that the call launches, summed, as
+    torch.profiler records them over `reps` calls after a warm-up; median
+    milliseconds of a call on the stream, CUDA events around it, launch
+    gaps included; {kernel: mean device ms a call}). flush: a device
+    buffer zeroed before each call, so that every call starts with a cold
+    L2. A recording that holds fewer kernel events than the calls launched
+    is discarded, as in kernel_ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pats = [kernel_pattern(n) for n in names]
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        before = sum(kernels.launches[n] for n in names)
+        ts = []
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if flush is not None:
+                    flush.zero_()
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                s.record()
+                fn()
+                e.record()
+                e.synchronize()
+                ts.append(s.elapsed_time(e))
+        launched = sum(kernels.launches[n] for n in names) - before
+        evs = [e for e in prof.events()
+               if any(p.search(e.name) for p in pats)]
+        if len(evs) == launched:
+            per = {}
+            for e in evs:
+                k = re.search(r"\w+_kernel(<[^>]*>)?", e.name).group(0)
+                per[k] = per.get(k, 0.0) + e.time_range.elapsed_us() / 1e3
+            return (sum(per.values()) / reps, statistics.median(ts),
+                    {k: round(v / reps, 4) for k, v in per.items()})
+        log(f"[probes] {names}: the profiler recorded {len(evs)} of "
+            f"{launched} launches (recording {attempt} of "
+            f"{PROFILE_ATTEMPTS}), discarded")
+    raise RuntimeError(f"no recording of {PROFILE_ATTEMPTS} held all "
+                       f"{names} launches")
+
+
+def staged_tiers(prep, stage_a, vb1, RU):
+    """-> (reads with undecided windows within RU, heavy reads, heavy reads
+    past the B2 sub-batch) of a staged probe whose stage A gave
+    stage_a = (hit, csid, cnt, need_sec)."""
+    usable = prep[PREP_FIELDS.index("usable")]
+    hit, _csid, cnt, need = stage_a
+    B, Wk = hit.shape
+    nU = (usable & ~hit & ((cnt > vb1) | need)).sum(dim=1)
+    heavy = nU > min(RU, Wk)
+    n_heavy = int(heavy.sum())
+    return (int(((nU > 0) & ~heavy).sum()), n_heavy,
+            max(0, n_heavy - max(1, B // 8)))
+
+
+def phase_probe_kernels(eng, codes):
+    """K2's two modes, K10 at STAGED_BUDGETS and K11 at ANCHORED_BUDGETS
+    against their plain versions, bit for bit, on phase 4's batch; the
+    contracts against K2 (K10's decided windows equal K2 at (8, 4), K11's
+    hits K2's at the defaults, hit and ovf never both); K10 at
+    STAGED_BUDGETS[0] and K11 at its defaults timed whole: the device time
+    of all the kernels a call launches, K2's included (L2 cold and warm),
+    and the call's time on the stream. -> (K2's modes' max_abs_err,
+    [K10's row, K11's row])."""
+    dev = eng.device
+    chunk = np.full((BATCH, WIDTH), 4, dtype=np.uint8)
+    n = min(BATCH, len(codes))
+    chunk[:n, :READ_LEN] = codes[:n]
+    c2, bd = (torch.from_numpy(a).to(dev) for a in pack_reads_host(chunk))
+    slots, text32, skew = eng.table
+    m, num_slots = eng.dparams
+    tabs = (slots, text32, skew)
+    kw = dict(k=K, m=m, num_slots=num_slots)
+    Wk = WIDTH - K + 1
+    lanes = BATCH * Wk
+    prep = window_prep(c2, bd, width=WIDTH, k=K, m=M)
+    usable = prep[PREP_FIELDS.index("usable")]
+
+    # K2's modes
+    err2 = 0
+    for mode in ({"stage1": True, "vb": 1}, {"stage1": True, "vb": 2},
+                 {"want_entry": True}):
+        got = minidict2_probe(*tabs, prep, **mode, **kw)
+        want = minidict2_probe_plain(*tabs, prep, **mode, **kw)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        err2 = max(err2, e)
+        what = (f"cnt > vb on {int((got[2] > mode['vb']).sum())} lanes, "
+                f"need_sec on {int(got[3].sum())}" if "stage1" in mode else
+                f"{int(got[4][got[0]].sum())} of {int(got[0].sum())} hits "
+                "in reverse complement")
+        log(f"[probes] minidict2_probe {mode}: {int(got[0].sum())} hits of "
+            f"{lanes} lanes, {what}, max_abs_err {e}")
+    if err2:
+        raise RuntimeError("a mode of minidict2_probe disagrees with its "
+                           "plain version")
+    hit8, cs8, ovf8 = minidict2_probe(*tabs, prep, vb=8, sc=4, **kw)
+    hitd, csd, _ovfd = minidict2_probe(*tabs, prep, **kw)
+
+    # K10
+    err10 = 0
+    for vb1, vb2, sc, ru in STAGED_BUDGETS:
+        bkw = dict(vb1=vb1, vb2=vb2, sc=sc, RU=ru, **kw)
+        got = minidict2_staged_probe(*tabs, prep, **bkw)
+        want = minidict2_staged_probe_plain(*tabs, prep, **bkw)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        err10 = max(err10, e)
+        light, heavy, past = staged_tiers(prep, minidict2_probe(
+            *tabs, prep, vb=vb1, stage1=True, **kw), vb1, ru)
+        hit, csid, ovf = got
+        ok = ~ovf
+        bad = int((ovf8[ok] | (hit[ok] != hit8[ok])
+                   | (csid[ok] != cs8[ok])).sum())
+        log(f"[probes] staged_probe at ({vb1}, {vb2}, {sc}, {ru}): "
+            f"{light} light reads with undecided windows, {heavy} heavy, "
+            f"{past} past the {max(1, BATCH // 8)}-read B2 sub-batch; "
+            f"{int(hit.sum())} hits, {int(ovf.sum())} ovf lanes in "
+            f"{int(ovf.any(dim=1).sum())} reads; max_abs_err {e}; decided "
+            f"lanes differing from minidict2_probe at (8, 4): {bad}")
+        if e or bad or (hit & ovf).any():
+            raise RuntimeError("staged_probe disagrees with its plain "
+                               "version or with minidict2_probe at (8, 4)")
+
+    # K11
+    err11 = 0
+    for RA, RU in ANCHORED_BUDGETS:
+        got = minidict2_anchored_probe(*tabs, prep, RA=RA, RU=RU, **kw)
+        want = minidict2_anchored_probe_plain(*tabs, prep, RA=RA, RU=RU,
+                                              **kw)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        err11 = max(err11, e)
+        hit, csid, ovf = got
+        both = hit & hitd
+        bad = int((csid[both] != csd[both]).sum())
+        log(f"[probes] anchored_probe at (RA, RU) = "
+            f"({RA or anchor_budget(Wk, K, M)}, "
+            f"{RU or reprobe_budget(Wk, K, M)}): {int(hit.sum())} hits "
+            f"({int(hitd.sum())} by minidict2_probe), {int(ovf.sum())} ovf "
+            f"lanes in {int(ovf.any(dim=1).sum())} reads; max_abs_err {e}; "
+            f"csid differing from minidict2_probe where both hit: {bad}")
+        if e or bad or (hit & ovf).any():
+            raise RuntimeError("anchored_probe disagrees with its plain "
+                               "version or with minidict2_probe")
+
+    # times: each probe whole, as the main path calls it
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    minval = u32(prep[PREP_FIELDS.index("minval")])[usable]
+    slot_rows = torch.unique(mulhi32(mix32(minval), num_slots) >> 3).numel()
+    vb1, vb2, sc, ru = STAGED_BUDGETS[0]
+    probes = (
+        ("staged_probe", "staged.cu", 1356, 0,
+         lambda: minidict2_staged_probe(*tabs, prep, vb1=vb1, vb2=vb2, sc=sc,
+                                        RU=ru, **kw),
+         lambda: minidict2_staged_probe_plain(*tabs, prep, vb1=vb1, vb2=vb2,
+                                              sc=sc, RU=ru, **kw), err10),
+        # K11 also reads pL and pR
+        ("anchored_probe", "anchored.cu", 1500, 8,
+         lambda: minidict2_anchored_probe(*tabs, prep, **kw),
+         lambda: minidict2_anchored_probe_plain(*tabs, prep, **kw), err11))
+    rows = []
+    for name, src, line, extra, fn, plain, err in probes:
+        names = (name, "minidict2_probe")
+        ms, stream_ms, per = call_ms(fn, names, REPS_KERNEL, flush)
+        warm, warm_stream, _p = call_ms(fn, names, REPS_KERNEL)
+        log(f"[probes] {name}: a call's kernels {ms:.4f} ms of device time "
+            f"cold L2 (each kernel's ms a call: {per}), {warm:.4f} warm; on "
+            f"the stream, launch gaps included, {stream_ms:.4f} ms cold L2, "
+            f"{warm_stream:.4f} back to back")
+        rows.append(dict(
+            name=name, source=f"fulgor_tpu_torch/csrc/{src}",
+            replaces=f"fulgor_tpu/ops/minidict2.py:{line}", max_abs_err=err,
+            ms=ms, warm_ms=warm, plain_ms=time_ms(plain, REPS_PLAIN),
+            # the probe's prep fields read once, hit/csid/ovf written, one
+            # 96-byte slot row a distinct bucket row, as K2's bound
+            bytes=lanes * (7 * 4 + 3 + extra) + lanes * 6 + slot_rows * 96,
+            ops=lanes * 120))
+    del flush
+    for r in rows:
+        finish_row(r, "probes")
+    return err2, rows
+
+
+def phase_probes(idx, eng, reads, tmp, fi, tu):
+    """The two opt-in probes end to end: FI and TU(TAU) under the staged
+    probe (FULGOR_PROBE_BUDGET at STAGED_BUDGETS[0], a new engine) and
+    under the anchored one (pipeline.ANCHORED_PROBE on the mini engine,
+    restored after): each a warm-up, PROBE_PASSES timed passes and a
+    profiled pass to a file, which must hold phase 5's FI or phase 6's TU
+    records. The staged passes take turns with as many one-pass passes of
+    the same tool, so that the two rates come from the same stretch of the
+    host's time (its speed drifts within a call); the anchored ones, 4-7x
+    slower, are set against phases 5-6's medians. -> {path: (launches,
+    median reads/s)}."""
+    budget = ",".join(map(str, STAGED_BUDGETS[0]))
+    os.environ["FULGOR_PROBE_BUDGET"] = budget
+    try:
+        seng = QueryEngine(idx, device=eng.device)
+    finally:
+        del os.environ["FULGOR_PROBE_BUDGET"]
+    if seng._pb != STAGED_BUDGETS[0]:
+        raise RuntimeError(f"FULGOR_PROBE_BUDGET={budget} gave {seng._pb}")
+    refs = {"fi": (fi["out"], fi["rate"]), "tu": (tu["ascii"], tu["rate"])}
+    out = {}
+    for probe, e in (("staged", seng), ("anchored", eng)):
+        pipeline_mod.ANCHORED_PROBE = probe == "anchored"
+        try:
+            for tool, kw in (("fi", {}), ("tu", {"threshold": TAU})):
+                path = f"{probe}_{tool}"
+
+                def fn(o=os.devnull, kw=kw, e=e):
+                    return e.pseudoalign_file(reads, o, **kw)
+
+                fn()  # warm-up
+                ref, one_pass = refs[tool]
+                where = f"phase {5 if tool == 'fi' else 6}'s"
+                if probe == "staged":
+                    rates, base = [], []
+                    for _ in range(PROBE_PASSES):
+                        base += timed_passes(tool, lambda kw=kw: (
+                            eng.pseudoalign_file(reads, os.devnull, **kw)),
+                            1)[0]
+                        r, _st, launches = timed_passes(path, fn, 1)
+                        rates += r
+                    one_pass, where = statistics.median(base), "in turns"
+                else:
+                    rates, _st, launches = timed_passes(path, fn,
+                                                        PROBE_PASSES)
+                f = os.path.join(tmp, f"{path}.tsv")
+                timed_passes(path, lambda fn=fn, f=f, path=path: profiled_pass(
+                    path, lambda: fn(f)), 1)
+                same = records_by_qid(f) == records_by_qid(ref)
+                rate = statistics.median(rates)
+                log(f"[probes] {path}: median {rate:.1f} reads/s "
+                    f"({min(rates):.1f}-{max(rates):.1f}) against the "
+                    f"one-pass probe's {one_pass:.1f} ({where}, "
+                    f"{rate / one_pass:.3f} x); the same records as phase "
+                    f"{5 if tool == 'fi' else 6}'s file: {same}")
+                if not same:
+                    raise RuntimeError(f"{path} differs from the one-pass "
+                                       "probe's records")
+                os.remove(f)
+                out[path] = (launches, rate)
+        finally:
+            pipeline_mod.ANCHORED_PROBE = False
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--genomes", type=int, default=512)
@@ -1520,6 +1826,10 @@ def main():
         array = phase_array(eng, ceng, codes, fi, tu, mirror)
         wide = phase_wide(idx, eng, codes, reads, tmp, array, mirror)
         rows.append(wide["row"])
+        err2, probe_rows = phase_probe_kernels(eng, codes)
+        rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], err2)
+        rows += probe_rows
+        probes = phase_probes(idx, eng, reads, tmp, fi, tu)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all; end to end "
@@ -1531,11 +1841,15 @@ def main():
         f"{ {k: round(v, 1) for k, v in array['rates'].items()} } reads/s "
         f"(one call each); {WIDE_C} colours: FI {wide['rates']['fi']:.1f} "
         f"(dense FI {wide['rates']['dense_fi']:.1f}), TU({TAU}) "
-        f"{wide['rates']['tu']:.1f} reads/s (medians)")
+        f"{wide['rates']['tu']:.1f} reads/s (medians); opt-in probes "
+        f"{ {k: round(v[1], 1) for k, v in probes.items()} } reads/s "
+        f"(medians)")
     # each kernel's launches on its own path's last timed run
     path_of = {"tu_mask": tu, "km_scores": km, "compact_runs": kc,
                "cuckoo_lookup": cuckoo, "pack_codes": array,
-               "first_set_bits": wide}
+               "first_set_bits": wide,
+               "staged_probe": {"launches": probes["staged_fi"][0]},
+               "anchored_probe": {"launches": probes["anchored_fi"][0]}}
     out = []
     for r in rows:
         out.append(dict(

@@ -8,6 +8,11 @@ tools/fulgor.cpp). Queries run on the card unless --device says otherwise.
     python -m fulgor_tpu_torch.cli pseudoalign -i idx.tfur -q reads.fq -o out [-r 0.8 | --deduplicate]
     python -m fulgor_tpu_torch.cli kmer-conservation -i idx.tfur -q reads.fq -o out
     python -m fulgor_tpu_torch.cli kmer-matches -i idx.tfur -q reads.fq -o out
+
+On a mini index, FULGOR_PROBE_BUDGET=vb1,vb2,sc,RU selects the staged probe
+and FULGOR_ANCHORED_PROBE=1 the run-anchored one for every query tool, as
+in fulgor_tpu (FULGOR_PROBE_BUDGET=vb,sc trims the one-pass probe, and
+FULGOR_PROBE_BUDGET_REDO=vb,sc sets the overflow redo's budget).
 """
 
 from __future__ import annotations

@@ -26,39 +26,33 @@
 // then row 2 in entry order; `tie` when both orientations of a chased
 // pointer were viable and the probed one missed). Row and text indices
 // are clamped where JAX clips them. Budgets are launch arguments.
+//
+// Two modes of _probe_entries' keyword flags, as compile-time variants of
+// the one kernel (template flags), so that the default launch keeps its
+// code:
+//   kStage1 (stage1=True, the staged probe's stage A, csrc/staged.cu):
+//     stop after the slot-window verifies; every lane, usable or not,
+//     walks all SCAN slots, so that cnt counts every strand-compatible
+//     in-span candidate (not capped at vb) and need_sec is that of JAX,
+//     unmasked by usable. -> (hit, csid, cnt, need_sec); no skew route.
+//   kEntry (want_entry=True, the run-anchored probe, csrc/anchored.cu):
+//     the default probe, also writing the winning candidate's (q, rc, wlo,
+//     sp) from the slot route or the skew route; 0/false where no
+//     candidate won.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "hash.cuh"
+#include "probe.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
-struct Text {
-  const uint4* rows;
-  long long n;
-  uint32_t lo_mask, hi_mask;
+using fulgor::Text;
 
-  // the 33-base extract of _make_extract33, compared to a k-mer packing
-  __device__ __forceinline__ bool verify(int q, uint32_t want_lo,
-                                         uint32_t want_hi) const {
-    long long r = q >> 5;
-    r = r < 0 ? 0 : (r > n - 1 ? n - 1 : r);
-    const uint4 row = __ldg(rows + r);
-    const uint32_t sh = 2u * static_cast<uint32_t>(q & 31);
-    const bool big = sh >= 32;
-    const uint32_t s2 = big ? sh - 32 : sh;
-    const uint32_t a0 = big ? row.y : row.x;
-    const uint32_t a1 = big ? row.z : row.y;
-    const uint32_t a2 = big ? row.w : row.z;
-    const uint32_t lo = s2 ? (a0 >> s2) | (a1 << (32 - s2)) : a0;
-    const uint32_t hi = s2 ? (a1 >> s2) | (a2 << (32 - s2)) : a1;
-    return (lo & lo_mask) == want_lo && (hi & hi_mask) == want_hi;
-  }
-};
-
+template <bool kStage1, bool kEntry>
 __global__ void __launch_bounds__(kThreads) minidict2_probe_kernel(
     const uint32_t* __restrict__ slots, long long R, Text text,
     const uint32_t* __restrict__ skew, long long NR,
@@ -69,13 +63,23 @@ __global__ void __launch_bounds__(kThreads) minidict2_probe_kernel(
     const uint32_t* __restrict__ rhi, const uint8_t* __restrict__ usable,
     long long n, int k, int m, uint32_t num_slots, int vb, int sc,
     uint8_t* __restrict__ hit, uint32_t* __restrict__ csid,
-    uint8_t* __restrict__ ovf) {
+    uint8_t* __restrict__ ovf, int32_t* __restrict__ cnt_out,
+    uint8_t* __restrict__ need_out, int32_t* __restrict__ e_q,
+    uint8_t* __restrict__ e_rc, int32_t* __restrict__ e_wlo,
+    int32_t* __restrict__ e_sp) {
   const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
   if (i >= n) return;
-  if (!usable[i]) {
+  const bool use = usable[i];
+  if (!kStage1 && !use) {
     hit[i] = 0;
     csid[i] = fulgor::kInvalid;
     ovf[i] = 0;
+    if constexpr (kEntry) {
+      e_q[i] = 0;
+      e_rc[i] = 0;
+      e_wlo[i] = 0;
+      e_sp[i] = 0;
+    }
     return;
   }
   const int il = iL[i], ir = iR[i];
@@ -89,7 +93,9 @@ __global__ void __launch_bounds__(kThreads) minidict2_probe_kernel(
   int cnt = 0, n_occ = 0;
   bool need_sec = false, found = false;
   uint32_t val = fulgor::kInvalid;
-  for (int s = 0; s < fulgor::kScan && !found; ++s) {
+  int w_q = 0, w_wlo = 0, w_sp = 0;  // the winner's entry (kEntry)
+  bool w_rc = false;
+  for (int s = 0; s < fulgor::kScan && (kStage1 || !found); ++s) {
     long long rr = baseR + s / fulgor::kRowW;
     rr = rr < 0 ? 0 : (rr > R - 1 ? R - 1 : rr);
     const uint32_t* e = slots + rr * (3 * fulgor::kRowW) + 3 * (s % fulgor::kRowW);
@@ -100,27 +106,47 @@ __global__ void __launch_bounds__(kThreads) minidict2_probe_kernel(
     const bool st = ms >> 31;
     need_sec |= cov && efp == fp;
     n_occ += (sp > 0) || cov;
+    if (kStage1 && !use) continue;  // need_sec only
     if (sp == 0 || efp != fp || cov) continue;
     const int wlo = static_cast<int>(__ldg(e));
     const uint32_t cs = __ldg(e + 1);
     const int mpos = wlo + static_cast<int>(ms & 0xFF);
     int q = mpos - il;
     if (sl == st && q >= wlo && q < wlo + sp) {
-      if (++cnt <= vb && text.verify(q, f_lo, f_hi)) {
+      if (++cnt <= vb && !found && text.verify(q, f_lo, f_hi)) {
         found = true;
         val = cs;
-        break;
+        if constexpr (kEntry) {
+          w_q = q;
+          w_rc = false;
+          w_wlo = wlo;
+          w_sp = sp;
+        }
+        if constexpr (!kStage1) break;
       }
     }
     q = mpos - (k - m) + ir;
     if (sr != st && q >= wlo && q < wlo + sp) {
-      if (++cnt <= vb && text.verify(q, r_lo, r_hi)) {
+      if (++cnt <= vb && !found && text.verify(q, r_lo, r_hi)) {
         found = true;
         val = cs;
+        if constexpr (kEntry) {
+          w_q = q;
+          w_rc = true;
+          w_wlo = wlo;
+          w_sp = sp;
+        }
       }
     }
   }
   need_sec |= n_occ >= fulgor::kScan;
+  if constexpr (kStage1) {
+    hit[i] = found;
+    csid[i] = found ? val : fulgor::kInvalid;
+    cnt_out[i] = cnt;
+    need_out[i] = need_sec;
+    return;
+  }
 
   // ---- skew route, only for lanes still missing that need it
   const bool gate = !found && need_sec;
@@ -161,6 +187,12 @@ __global__ void __launch_bounds__(kThreads) minidict2_probe_kernel(
       if (cf ? text.verify(qf, f_lo, f_hi) : text.verify(qr, r_lo, r_hi)) {
         found = true;
         val = cs;
+        if constexpr (kEntry) {
+          w_q = cf ? qf : qr;
+          w_rc = !cf;
+          w_wlo = wlo;
+          w_sp = sp;
+        }
       } else if (cf && cr) {
         tie = true;
       }
@@ -169,26 +201,36 @@ __global__ void __launch_bounds__(kThreads) minidict2_probe_kernel(
   hit[i] = found;
   csid[i] = found ? val : fulgor::kInvalid;
   ovf[i] = !found && (cnt > vb || (gate && (cnt2 > sc || tie)));
+  if constexpr (kEntry) {
+    e_q[i] = w_q;
+    e_rc[i] = w_rc;
+    e_wlo[i] = w_wlo;
+    e_sp[i] = w_sp;
+  }
 }
 
 }  // namespace
 
+// mode 0: the default probe; 1: stage1, x0 = cnt (int32), x1 = need_sec
+// (bool), ovf unused; 2: want_entry, x0..x3 = q, rc, wlo, sp.
 extern "C" int fulgor_minidict2_probe(
     const void* slots, long long R, const void* text32, long long N,
     const void* skew, long long NR, const void* minval, const void* iL,
     const void* iR, const void* sigL, const void* sigR, const void* flo,
     const void* fhi, const void* rlo, const void* rhi, const void* usable,
-    long long n, int k, int m, uint32_t num_slots, int vb, int sc, void* hit,
-    void* csid, void* ovf, void* stream) {
+    long long n, int k, int m, uint32_t num_slots, int vb, int sc, int mode,
+    void* hit, void* csid, void* ovf, void* x0, void* x1, void* x2, void* x3,
+    void* stream) {
   if (n <= 0 || R <= 0 || N <= 0 || NR <= 0 || vb < 0 || sc < 0 ||
-      sc > fulgor::kMaxSkewCand || k > 32 || m > k)
+      sc > fulgor::kMaxSkewCand || k > 32 || m > k || mode < 0 || mode > 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  const uint32_t lo_mask = 2 * k >= 32 ? 0xFFFFFFFFu : (1u << (2 * k)) - 1;
-  const uint32_t hi_mask = 2 * k > 32 ? (1u << (2 * k - 32)) - 1 : 0u;
-  const Text text{static_cast<const uint4*>(text32), N, lo_mask, hi_mask};
+  const Text text = fulgor::make_text(text32, N, k);
   const long long blocks = (n + kThreads - 1) / kThreads;
-  minidict2_probe_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = mode == 0   ? minidict2_probe_kernel<false, false>
+                : mode == 1 ? minidict2_probe_kernel<true, false>
+                            : minidict2_probe_kernel<false, true>;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(slots), R, text,
       static_cast<const uint32_t*>(skew), NR,
       static_cast<const uint32_t*>(minval), static_cast<const int32_t*>(iL),
@@ -197,6 +239,10 @@ extern "C" int fulgor_minidict2_probe(
       static_cast<const uint32_t*>(fhi), static_cast<const uint32_t*>(rlo),
       static_cast<const uint32_t*>(rhi), static_cast<const uint8_t*>(usable), n,
       k, m, num_slots, vb, sc, static_cast<uint8_t*>(hit),
-      static_cast<uint32_t*>(csid), static_cast<uint8_t*>(ovf));
+      static_cast<uint32_t*>(csid), static_cast<uint8_t*>(ovf),
+      // x0 and x1 serve both modes' outputs: each mode writes one group
+      static_cast<int32_t*>(x0), static_cast<uint8_t*>(x1),
+      static_cast<int32_t*>(x0), static_cast<uint8_t*>(x1),
+      static_cast<int32_t*>(x2), static_cast<int32_t*>(x3));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,72 @@
+// Shared pieces of the probe kernels: K2 (probe.cu) and the two probes
+// built on it, K10 (staged.cu) and K11 (anchored.cu).
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace fulgor {
+
+// The dictionary's text, 16 bases a u32, four words a row, with the mask
+// of a k-mer's two packed halves.
+struct Text {
+  const uint4* rows;
+  long long n;
+  uint32_t lo_mask, hi_mask;
+
+  // the 33-base extract of _make_extract33, compared to a k-mer packing
+  __device__ __forceinline__ bool verify(int q, uint32_t want_lo,
+                                         uint32_t want_hi) const {
+    long long r = q >> 5;
+    r = r < 0 ? 0 : (r > n - 1 ? n - 1 : r);
+    const uint4 row = __ldg(rows + r);
+    const uint32_t sh = 2u * static_cast<uint32_t>(q & 31);
+    const bool big = sh >= 32;
+    const uint32_t s2 = big ? sh - 32 : sh;
+    const uint32_t a0 = big ? row.y : row.x;
+    const uint32_t a1 = big ? row.z : row.y;
+    const uint32_t a2 = big ? row.w : row.z;
+    const uint32_t lo = s2 ? (a0 >> s2) | (a1 << (32 - s2)) : a0;
+    const uint32_t hi = s2 ? (a1 >> s2) | (a2 << (32 - s2)) : a1;
+    return (lo & lo_mask) == want_lo && (hi & hi_mask) == want_hi;
+  }
+};
+
+inline Text make_text(const void* text32, long long N, int k) {
+  const uint32_t lo_mask = 2 * k >= 32 ? 0xFFFFFFFFu : (1u << (2 * k)) - 1;
+  const uint32_t hi_mask = 2 * k > 32 ? (1u << (2 * k - 32)) - 1 : 0u;
+  return Text{static_cast<const uint4*>(text32), N, lo_mask, hi_mask};
+}
+
+// The ten probe inputs of one array of lanes, in K2's argument order
+// (minval, iL, iR, sigL, sigR, flo, fhi, rlo, rhi, usable): the 32-bit
+// fields in `w` (minval, iL, iR, flo, fhi, rlo, rhi), the flags in `f`
+// (sigL, sigR, usable).
+struct Lanes {
+  uint32_t* w[7];
+  uint8_t* f[3];
+
+  // copy lane s of `src` into lane d, all but usable
+  __device__ __forceinline__ void take(const Lanes& src, long long s,
+                                       long long d) const {
+#pragma unroll
+    for (int j = 0; j < 7; ++j) w[j][d] = src.w[j][s];
+    f[0][d] = src.f[0][s];
+    f[1][d] = src.f[1][s];
+  }
+  __device__ __forceinline__ uint8_t* usable() const { return f[2]; }
+};
+
+// Lanes from ten pointers in K2's argument order.
+inline Lanes make_lanes(void* const* p) {
+  Lanes l;
+  const int wi[7] = {0, 1, 2, 5, 6, 7, 8};
+  for (int j = 0; j < 7; ++j) l.w[j] = static_cast<uint32_t*>(p[wi[j]]);
+  l.f[0] = static_cast<uint8_t*>(p[3]);
+  l.f[1] = static_cast<uint8_t*>(p[4]);
+  l.f[2] = static_cast<uint8_t*>(p[9]);
+  return l;
+}
+
+}  // namespace fulgor

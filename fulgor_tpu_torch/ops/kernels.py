@@ -10,8 +10,10 @@ Each C entry point launches on the stream it is given and returns
 cudaGetLastError(); `check` raises on a non-zero code. `launches` counts
 the kernel launches made by the wrappers in ops/prep.py (K1 window_prep,
 K8 pack_codes), ops/probe.py (K2 minidict2_probe), ops/intersect.py (K3
-fi_and, K4 tu_mask, K5 km_scores, K6 compact_runs, K9 first_set_bits) and
-ops/lookup.py (K7 cuckoo_lookup): one per launch, nowhere else.
+fi_and, K4 tu_mask, K5 km_scores, K6 compact_runs, K9 first_set_bits),
+ops/lookup.py (K7 cuckoo_lookup), ops/staged.py (K10 staged_probe: its
+four kernels, not the K2 launches between them) and ops/anchored.py (K11
+anchored_probe: its three kernels): one per launch, nowhere else.
 """
 
 from __future__ import annotations
@@ -28,12 +30,13 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
 LIB = os.path.join(BUILD, "libfulgor_kernels.so")
 SOURCES = ("prep.cu", "probe.cu", "intersect.cu", "union.cu", "runs.cu",
-           "cuckoo.cu", "pack.cu", "lists.cu")
+           "cuckoo.cu", "pack.cu", "lists.cu", "staged.cu", "anchored.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 launches = {"window_prep": 0, "minidict2_probe": 0, "fi_and": 0,
             "tu_mask": 0, "km_scores": 0, "compact_runs": 0,
-            "cuckoo_lookup": 0, "pack_codes": 0, "first_set_bits": 0}
+            "cuckoo_lookup": 0, "pack_codes": 0, "first_set_bits": 0,
+            "staged_probe": 0, "anchored_probe": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -108,7 +111,8 @@ def library():
         lib.fulgor_window_prep.argtypes = [P, P, I, I, I, I] + [P] * 12 + [P]
         lib.fulgor_minidict2_probe.argtypes = (
             [P, ct.c_int64, P, ct.c_int64, P, ct.c_int64]
-            + [P] * 10 + [ct.c_int64, I, I, ct.c_uint32, I, I] + [P] * 3 + [P])
+            + [P] * 10 + [ct.c_int64, I, I, ct.c_uint32, I, I, I] + [P] * 7
+            + [P])
         lib.fulgor_fi_and.argtypes = [P, I, P, P, I, I, P, P]
         lib.fulgor_tu_mask.argtypes = [P, I, I, P, P, I, I, P, P, P]
         lib.fulgor_km_scores.argtypes = [P, I, I, P, P, I, I, P, P, P]
@@ -116,11 +120,19 @@ def library():
         lib.fulgor_cuckoo_lookup.argtypes = [P, I, P, P, I, I, I, P, P, P]
         lib.fulgor_pack_codes.argtypes = [P, I, I, P, P, P]
         lib.fulgor_first_set_bits.argtypes = [P, I, I, I, P, P, P]
+        lib.fulgor_staged_split.argtypes = [P] * 4 + [I] * 5 + [P] * 8
+        lib.fulgor_staged_merge.argtypes = [P] * 10 + [I] * 4 + [P] * 4
+        lib.fulgor_anchored_anchors.argtypes = [P] * 3 + [I] * 3 + [P] * 4
+        lib.fulgor_anchored_extend.argtypes = (
+            [P, ct.c_int64, P] + [P] * 4 + [P] * 7 + [I] * 5 + [P] * 6)
+        lib.fulgor_anchored_merge.argtypes = [P] * 4 + [I] * 3 + [P] * 4
         for fn in (lib.fulgor_window_prep, lib.fulgor_minidict2_probe,
                    lib.fulgor_fi_and, lib.fulgor_tu_mask,
                    lib.fulgor_km_scores, lib.fulgor_compact_runs,
                    lib.fulgor_cuckoo_lookup, lib.fulgor_pack_codes,
-                   lib.fulgor_first_set_bits):
+                   lib.fulgor_first_set_bits, lib.fulgor_staged_split,
+                   lib.fulgor_staged_merge, lib.fulgor_anchored_anchors,
+                   lib.fulgor_anchored_extend, lib.fulgor_anchored_merge):
             fn.restype = I
         _lib = lib
         return lib
@@ -143,6 +155,11 @@ def check(rc: int, name: str):
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {rc}")
+
+
+def pointers(tensors):
+    """A C array of the tensors' device pointers (a void* const*)."""
+    return (ct.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
 def stream_of(t) -> int:

@@ -789,3 +789,20 @@ def probe_windows_host(d: MiniDict2, codes: np.ndarray):
                     hit[g[sel]] = True
                     out[g[sel]] = cse[sel]
     return hit, out
+
+
+def anchor_budget(Wk: int, k: int, m: int) -> int:
+    """Anchor lanes per side for a Wk-window read (fulgor_tpu
+    minidict2.py:1432): the expected minimizer-run count is ~2 Wk / (w + 1)
+    for w = k - m + 1 random-minimizer windows (SSHash's density argument);
+    the budget is 1.6x that plus slack, so that only tail reads overflow."""
+    w = k - m + 1
+    return min(Wk, max(8, (16 * Wk) // (5 * (w + 1)) + 8))
+
+
+def reprobe_budget(Wk: int, k: int, m: int) -> int:
+    """Undecided-window reprobe lanes a read (fulgor_tpu minidict2.py:1441):
+    read errors shatter the local run structure, so the same head room as
+    the anchor side; heavier reads take the redo."""
+    w = k - m + 1
+    return min(Wk, max(8, (16 * Wk) // (5 * (w + 1)) + 8))

@@ -9,35 +9,56 @@ device; on CPU tensors every step runs its plain version. For a mini index
 The packed steps take host-packed (codes2, bad) batches (ops/hostpack.py);
 the unpacked ones (the array API's) take (B, L) uint8 codes and pack them on
 the device with K8 first.
+
+The mini probe of every step goes through query_window_csids_packed, which
+picks it as fulgor_tpu's dict_probe_packed does (pipeline.py:107-141):
+the run-anchored probe K11 whenever ANCHORED_PROBE is set, whatever the
+budget; else the staged probe K10 for a 4-tuple budget (vb1, vb2, sc, RU);
+else the one-pass K2 at a 2-tuple (vb, sc) or the default budgets.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
+from .anchored import minidict2_anchored_probe
 from .intersect import compact_runs, fi_and, first_set_bits, km_scores, tu_mask
 from .lookup import cuckoo_lookup
 from .minidict2 import SKEW_CAND, VERIFY_BUDGET
 from .prep import pack_codes, window_prep
 from .probe import minidict2_probe
+from .staged import minidict2_staged_probe
+
+# FULGOR_ANCHORED_PROBE=1: every mini probe is the run-anchored one, the
+# deferred redo's included. Read once at import, as fulgor_tpu reads it
+# (pipeline.py:23); a caller may set the attribute itself.
+ANCHORED_PROBE = os.environ.get("FULGOR_ANCHORED_PROBE", "0") == "1"
 
 
 def query_window_csids_packed(table, codes2, bad, *, k: int, width: int,
                               dparams, probe_budget=None):
-    """K1 -> K2 (mini), or K7 (cuckoo, dparams None), over a packed batch
-    -> (hit, csid, ovf), each (B, Wk) (fulgor_tpu pipeline.py:232 and
-    dict_probe_packed :107); the cuckoo table never overflows, so its ovf
-    is all false and probe_budget does not apply. Also the deferred redo's
-    probe."""
+    """K1 -> K2, K10 or K11 (mini), or K7 (cuckoo, dparams None), over a
+    packed batch -> (hit, csid, ovf), each (B, Wk) (fulgor_tpu
+    pipeline.py:232 and dict_probe_packed :107); the cuckoo table never
+    overflows, so its ovf is all false and probe_budget does not apply.
+    Also the deferred redo's probe."""
     if dparams is None:
         hit, csid = cuckoo_lookup(table, codes2, bad, width=width, k=k)
         return hit, csid, torch.zeros_like(hit)
     m, num_slots = dparams
-    vb, sc = probe_budget or (VERIFY_BUDGET, SKEW_CAND)
     slots, text32, skew = table
     prep = window_prep(codes2, bad, width=width, k=k, m=m)
-    return minidict2_probe(slots, text32, skew, prep, k=k, m=m,
-                           num_slots=num_slots, vb=vb, sc=sc)
+    kw = dict(k=k, m=m, num_slots=num_slots)
+    if ANCHORED_PROBE:
+        return minidict2_anchored_probe(slots, text32, skew, prep, **kw)
+    if probe_budget is not None and len(probe_budget) == 4:
+        vb1, vb2, sc, ru = probe_budget
+        return minidict2_staged_probe(slots, text32, skew, prep, vb1=vb1,
+                                      vb2=vb2, sc=sc, RU=ru, **kw)
+    vb, sc = probe_budget or (VERIFY_BUDGET, SKEW_CAND)
+    return minidict2_probe(slots, text32, skew, prep, vb=vb, sc=sc, **kw)
 
 
 def query_full_intersection_packed(table, dense_bits, codes2, bad, *, k: int,

@@ -19,6 +19,21 @@ ops/lookup.py. Per window lane, given the window prep (ops/prep.py):
 each (B, Wk). `minidict2_probe` launches csrc/probe.cu for CUDA tensors
 and runs the plain version for CPU tensors. Budgets may be trimmed: a
 trimmed probe stays exact where it decides and only raises ovf more often.
+
+Two modes, _probe_entries' keyword flags (compile-time variants of the
+kernel):
+
+  stage1=True      stop after step 1 -> (hit, csid, cnt int32, need_sec
+                   bool): cnt counts every strand-compatible in-span
+                   candidate over all SCAN slots (not capped at vb), and
+                   need_sec is not masked by usable (the staged probe's
+                   stage A, ops/staged.py);
+  want_entry=True  also the winning candidate's (q int32, rc bool, wlo
+                   int32, sp int32), from either route, 0/False where none
+                   won (the run-anchored probe, ops/anchored.py).
+
+fulgor_tpu's `gate` needs no mode: a lane outside it reports no hit and no
+ovf, as a lane that is not usable does, so callers pass usable & gate.
 """
 
 from __future__ import annotations
@@ -59,7 +74,8 @@ def _extract33(text: torch.Tensor, q: torch.Tensor):
 
 def minidict2_probe_plain(slots, text32, skew, prep, *, k: int, m: int,
                           num_slots: int, vb: int = VERIFY_BUDGET,
-                          sc: int = SKEW_CAND):
+                          sc: int = SKEW_CAND, stage1: bool = False,
+                          want_entry: bool = False):
     """Plain PyTorch probe (any device), the JAX formulation in int64."""
     (minval, iL, iR, _pL, _pR, sigL, sigR, flo, fhi, rlo, rhi,
      use) = prep
@@ -81,6 +97,8 @@ def minidict2_probe_plain(slots, text32, skew, prep, *, k: int, m: int,
     q_sel = [z.clone() for _ in range(vb)]
     o_sel = [torch.zeros_like(use) for _ in range(vb)]
     cs_sel = [z.clone() for _ in range(vb)]
+    w_sel = [z.clone() for _ in range(vb)]
+    s_sel = [z.clone() for _ in range(vb)]
     for s in range(SCAN):
         row = rows[s // ROWW]
         off = 3 * (s % ROWW)
@@ -101,18 +119,33 @@ def minidict2_probe_plain(slots, text32, skew, prep, *, k: int, m: int,
                 q_sel[j] = torch.where(upd, q, q_sel[j])
                 o_sel[j] = torch.where(upd, orient, o_sel[j])
                 cs_sel[j] = torch.where(upd, cs, cs_sel[j])
+                if want_entry:
+                    w_sel[j] = torch.where(upd, wlo, w_sel[j])
+                    s_sel[j] = torch.where(upd, sp, s_sel[j])
             cnt += cand
     need_sec |= n_occ >= SCAN
 
     hit = torch.zeros_like(use)
     val = torch.full_like(minval, INVALID_U32)
+    entry = (z.clone(), torch.zeros_like(use), z.clone(), z.clone())
+
+    def won(new, q, rc, wlo, sp):
+        """The winning candidate's (q, rc, wlo, sp) where `new` hits."""
+        if not want_entry:
+            return entry
+        return tuple(torch.where(new, a, e)
+                     for a, e in zip((q, rc, wlo, sp), entry))
+
     for j in range(vb):
         has = cnt > j
         tlo, thi = _extract33(text, torch.where(has, q_sel[j], 0))
         okv = (has & ((tlo & lo_mask) == torch.where(o_sel[j], rlo, flo))
                & ((thi & hi_mask) == torch.where(o_sel[j], rhi, fhi)))
         val = torch.where(okv & ~hit, cs_sel[j], val)
+        entry = won(okv & ~hit, q_sel[j], o_sel[j], w_sel[j], s_sel[j])
         hit |= okv
+    if stage1:
+        return hit, i32(val), cnt.to(torch.int32), need_sec
 
     # skew route, gathered only where gated
     gate = use & ~hit & need_sec
@@ -153,55 +186,114 @@ def minidict2_probe_plain(slots, text32, skew, prep, *, k: int, m: int,
                & ((thi & hi_mask) == torch.where(cand_f, fhi, rhi)))
         tie |= cand_f & cand_r & ~okv
         val = torch.where(okv & ~hit, cs, val)
+        entry = won(okv & ~hit, torch.where(cand_f, q_f, q_r), ~cand_f, wlo,
+                    sp)
         hit |= okv
 
     ovf = (use & ~hit & (cnt > vb)) | (gate & ~hit & ((cnt2 > sc) | tie))
     val = torch.where(hit, val, INVALID_U32)
+    if want_entry:
+        q, rc, wlo, sp = entry
+        return (hit, i32(val), ovf, q.to(torch.int32), rc,
+                wlo.to(torch.int32), sp.to(torch.int32))
     return hit, i32(val), ovf
 
 
-def minidict2_probe(slots, text32, skew, prep, *, k: int, m: int,
-                    num_slots: int, vb: int = VERIFY_BUDGET,
-                    sc: int = SKEW_CAND):
-    """Probe every window lane of `prep` (ops/prep.window_prep output)
-    against the device tables (Index.device_tables: slots, text32, skew as
-    int32 bit patterns). -> (hit, csid, ovf), each (B, Wk)."""
-    if slots.device.type == "cpu":
-        return minidict2_probe_plain(slots, text32, skew, prep, k=k, m=m,
-                                     num_slots=num_slots, vb=vb, sc=sc)
+def probe_lanes(prep):
+    """The ten fields of a window prep that the probe reads, in the
+    kernel's argument order: (minval, iL, iR, sigL, sigR, flo, fhi, rlo,
+    rhi, usable)."""
+    (minval, iL, iR, _pL, _pR, sigL, sigR, flo, fhi, rlo, rhi,
+     usable) = prep
+    return (minval, iL, iR, sigL, sigR, flo, fhi, rlo, rhi, usable)
+
+
+def prep_of_lanes(lanes):
+    """A window prep made of probe_lanes' ten fields; its pL and pR, which
+    the probe does not read, are iL and iR."""
+    minval, iL, iR, sigL, sigR, flo, fhi, rlo, rhi, usable = lanes
+    return (minval, iL, iR, iL, iR, sigL, sigR, flo, fhi, rlo, rhi, usable)
+
+
+def empty_lanes(lanes, shape):
+    """Uninitialised tensors of `shape` with the dtypes of probe_lanes'
+    fields, on their device (the compacted lanes of K10 and K11)."""
+    return [torch.empty(shape, dtype=t.dtype, device=t.device)
+            for t in lanes]
+
+
+def check_probe_inputs(name, slots, text32, skew, prep):
+    """Raise unless the tables and the prep's probe fields are contiguous
+    CUDA tensors of the kernels' dtypes and shapes, on one device."""
     if slots.device.type != "cuda":
-        raise ValueError(f"minidict2_probe: unsupported device {slots.device}")
-    if not (0 <= vb and 0 <= sc <= MAX_SKEW_CAND and 0 < num_slots < 1 << 32):
-        raise ValueError(f"minidict2_probe: unsupported budget ({vb}, {sc})")
+        raise ValueError(f"{name}: unsupported device {slots.device}")
     tabs = (slots, text32, skew)
     if (any(t.dtype != torch.int32 or not t.is_contiguous()
             or t.device != slots.device for t in tabs)
             or slots.shape[1] != 3 * ROWW or text32.shape[1] != 4
             or skew.shape[1] != SKEW_ROWW):
-        raise ValueError("minidict2_probe: tables must be contiguous int32 "
+        raise ValueError(f"{name}: tables must be contiguous int32 "
                          "(R, 24), (N, 4), (NR, 8) on one device")
-    (minval, iL, iR, _pL, _pR, sigL, sigR, flo, fhi, rlo, rhi,
-     usable) = prep
-    lanes = (minval, iL, iR, sigL, sigR, flo, fhi, rlo, rhi, usable)
+    shape = tuple(prep[0].shape)
+    dtypes = (torch.int32,) * 3 + (torch.bool,) * 2 + (torch.int32,) * 4 + (
+        torch.bool,)
+    if len(shape) != 2 or any(
+            tuple(t.shape) != shape or not t.is_contiguous()
+            or t.device != slots.device or t.dtype != d
+            for t, d in zip(probe_lanes(prep), dtypes)):
+        raise ValueError(f"{name}: prep tensors must be contiguous, of one "
+                         "(B, Wk) shape and of window_prep's dtypes on the "
+                         "tables' device")
+
+
+def minidict2_probe(slots, text32, skew, prep, *, k: int, m: int,
+                    num_slots: int, vb: int = VERIFY_BUDGET,
+                    sc: int = SKEW_CAND, stage1: bool = False,
+                    want_entry: bool = False):
+    """Probe every window lane of `prep` (ops/prep.window_prep output)
+    against the device tables (Index.device_tables: slots, text32, skew as
+    int32 bit patterns). -> (hit, csid, ovf), each (B, Wk); with stage1
+    (hit, csid, cnt, need_sec), with want_entry (hit, csid, ovf, q, rc,
+    wlo, sp)."""
+    if stage1 and want_entry:
+        raise ValueError("minidict2_probe: stage1 and want_entry exclude "
+                         "each other")
+    if slots.device.type == "cpu":
+        return minidict2_probe_plain(slots, text32, skew, prep, k=k, m=m,
+                                     num_slots=num_slots, vb=vb, sc=sc,
+                                     stage1=stage1, want_entry=want_entry)
+    check_probe_inputs("minidict2_probe", slots, text32, skew, prep)
+    if not (0 <= vb and 0 <= sc <= MAX_SKEW_CAND and 0 < num_slots < 1 << 32):
+        raise ValueError(f"minidict2_probe: unsupported budget ({vb}, {sc})")
+    lanes = probe_lanes(prep)
+    minval = lanes[0]
     shape = tuple(minval.shape)
-    if any(tuple(t.shape) != shape or not t.is_contiguous()
-           or t.device != slots.device for t in lanes):
-        raise ValueError("minidict2_probe: prep tensors must be contiguous "
-                         "and of one shape on the tables' device")
     dev = slots.device
-    hit = torch.empty(shape, dtype=torch.bool, device=dev)
-    csid = torch.empty(shape, dtype=torch.int32, device=dev)
-    ovf = torch.empty(shape, dtype=torch.bool, device=dev)
+
+    def out(dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    hit, csid = out(torch.bool), out(torch.int32)
+    ovf = None if stage1 else out(torch.bool)
+    if stage1:
+        mode, extra = 1, (out(torch.int32), out(torch.bool))
+    elif want_entry:
+        mode, extra = 2, (out(torch.int32), out(torch.bool),
+                          out(torch.int32), out(torch.int32))
+    else:
+        mode, extra = 0, ()
+    outs = tuple(t for t in (hit, csid, ovf) if t is not None) + extra
     n = minval.numel()
     if n == 0:
-        return hit, csid, ovf
+        return outs
+    ptrs = [t.data_ptr() for t in extra] + [None] * (4 - len(extra))
     lib = kernels.library()
     rc = lib.fulgor_minidict2_probe(
         slots.data_ptr(), slots.shape[0], text32.data_ptr(), text32.shape[0],
         skew.data_ptr(), skew.shape[0], *(t.data_ptr() for t in lanes),
-        n, k, m, num_slots, vb, sc,
-        hit.data_ptr(), csid.data_ptr(), ovf.data_ptr(),
+        n, k, m, num_slots, vb, sc, mode, hit.data_ptr(), csid.data_ptr(),
+        None if ovf is None else ovf.data_ptr(), *ptrs,
         kernels.stream_of(slots))
     kernels.check(rc, "minidict2_probe")
     kernels.launches["minidict2_probe"] += 1
-    return hit, csid, ovf
+    return outs

@@ -19,13 +19,19 @@ array API over in-memory reads, on an index of either dictionary.
 with at most two batches in flight while the host consumes a third. Batch
 widths come from the same ladder and lane budget as fulgor_tpu's engine.
 
+The mini probe is K2 at the engine's budget (below), or, as in fulgor_tpu,
+the staged probe K10 under FULGOR_PROBE_BUDGET=vb1,vb2,sc,RU and the
+run-anchored probe K11 under FULGOR_ANCHORED_PROBE=1 (ops/pipeline.py; the
+redo included), both opt-in.
+
 Reads the device cannot decide exactly — probe overflow (ovf, mini only:
 the cuckoo table never overflows) or longer than the widest rung — are
 deferred: every REDO_FLUSH of them take one device re-probe at the redo
-budget REDO_BUDGET = (8, 4); reads still in overflow after it, and
-over-long reads, take the exact host mirror. The redo pools are written in
-read-id order (fulgor_tpu's final flush writes its last pool before the
-earlier in-flight ones; this engine does not). So pseudoalign output is in
+budget REDO_BUDGET = (8, 4) (FULGOR_PROBE_BUDGET_REDO overrides it); reads
+still in overflow after it, and over-long reads, take the exact host
+mirror. The redo pools are written in read-id order (fulgor_tpu's final
+flush writes its last pool before the earlier in-flight ones; this engine
+does not). So pseudoalign output is in
 read-id order except for these stragglers, which trail. TU redo pools take
 K4 on the re-probe's own outputs (where a dense matrix exists), so only
 reads still in overflow, and over-long reads, are scored on the host.
@@ -191,6 +197,15 @@ def _runs_budget(W: int, ekpu: float = 64.0, k: int = 31) -> int:
     return 16 if W <= 256 else max(16, W // 16)
 
 
+def _probe_budget_env(name: str, value: str) -> tuple:
+    """A probe budget from an environment variable: vb,sc (the one-pass
+    probe) or vb1,vb2,sc,RU (the staged probe)."""
+    pb = tuple(int(x) for x in value.split(","))
+    if len(pb) not in (2, 4):
+        raise ValueError(f"{name} takes vb,sc or vb1,vb2,sc,RU, not {value!r}")
+    return pb
+
+
 def _round_up(x, m):
     return -(-x // m) * m
 
@@ -295,7 +310,12 @@ class QueryEngine:
         else:
             self.table = (tabs["slots"], tabs["text32"], tabs["skew"])
             self._covered_frac, self._pb = self._mini_probe_budget(index)
-        self._pb_redo = REDO_BUDGET
+        # FULGOR_PROBE_BUDGET_REDO=vb,sc (or a staged vb1,vb2,sc,RU): the
+        # deferred redo's budget, as fulgor_tpu reads it (engine.py:340)
+        pb_redo = os.environ.get("FULGOR_PROBE_BUDGET_REDO")
+        self._pb_redo = (_probe_budget_env("FULGOR_PROBE_BUDGET_REDO",
+                                           pb_redo)
+                         if pb_redo else REDO_BUDGET)
         # colour-stage strategy (fulgor_tpu engine.py:193-291); plain
         # attributes, so that a caller can force one. dense_max_bytes is the
         # largest dense colour matrix the engine builds (fulgor_tpu's
@@ -333,9 +353,10 @@ class QueryEngine:
         """-> (covered fraction, probe budget (VERIFY_BUDGET, SKEW_CAND)) of
         a mini index: the budget by the covered-entry fraction of its slot
         array, exactly as fulgor_tpu's engine (engine.py:303-341): <0.10
-        skew-light (2, 2); 0.10-0.45 mid (4, 4); >=0.45 skew-heavy (3, 3);
-        FULGOR_PROBE_BUDGET=vb,sc overrides. Overflow reads re-probe at
-        REDO_BUDGET."""
+        skew-light (2, 2); 0.10-0.45 mid (4, 4); >=0.45 skew-heavy (3, 3).
+        FULGOR_PROBE_BUDGET=vb,sc overrides it, and
+        FULGOR_PROBE_BUDGET=vb1,vb2,sc,RU selects the staged probe (K10) for
+        every main step. Overflow reads re-probe at the redo budget."""
         ms = index.mini_slots[:, 2::3]
         covb = ((ms >> np.uint32(15)) & np.uint32(1)) == 1
         occ = int(((((ms >> np.uint32(8)) & np.uint32(0x7F)) > 0)
@@ -343,11 +364,7 @@ class QueryEngine:
         frac = int(covb.sum()) / max(1, occ)
         pb_env = os.environ.get("FULGOR_PROBE_BUDGET")
         if pb_env:
-            pb = tuple(int(x) for x in pb_env.split(","))
-            if len(pb) != 2:
-                raise ValueError("FULGOR_PROBE_BUDGET takes vb,sc (the staged "
-                                 "probe is not part of fulgor_tpu_torch)")
-            return frac, pb
+            return frac, _probe_budget_env("FULGOR_PROBE_BUDGET", pb_env)
         return frac, ((2, 2) if frac < 0.10 else (4, 4) if frac < 0.45
                       else (3, 3))
 
