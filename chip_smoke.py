@@ -97,6 +97,31 @@ last line, which is printed only when every phase passed:
               each a warm-up, three timed passes (the staged ones in turns
               with one-pass passes of the same tool) and a profiled pass to
               a file, which must hold phase 5's FI or phase 6's TU records.
+ 11. mesh     the mesh query path (parallel/mesh.py) on the one card. (a)
+              On phase 4's batch, bit for bit: K12 runs_scores over K6's
+              runs at R = Wk, mask (tau 0.8) and u16 modes, on every colour
+              shard of the 512-colour dense at P in {1, 2, 4} and of the
+              4,546-colour one at P = 2; K13 pack_hits on K2's hits and
+              csids, with and without narrowing; query_conservation_packed
+              against its plain composition; K12 timed at a (2, 2) grid's
+              shape (one data row's reads, shard 0 of 2), K13 at one cell's.
+              (b) QueryEngine on a (2, 2) grid of four cells on this card
+              and with use_mesh=True (a (1, 1) grid): FI, TU(0.8),
+              --deduplicate, kmer-matches and kmer-conservation once each
+              to a file, pseudoalign records equal to phase 5's sorted by
+              read id, kmer-matches and -conservation byte for byte; each
+              batch four launches (one on (1, 1)) of K1, K2 and K6 and of
+              K3 or K12, the TU and kmer-matches redo batches as many
+              (their redo runs the mesh's step, never K4 or K5); FI and
+              TU(0.8) on (2, 2) also a warm-up, three timed passes in
+              turns with one-device passes of the same tool, and a
+              profiled pass; the array API's FI and TU(0.8) on the (2, 2)
+              grid, read for read equal to phase 8's.
+              (c) the 4,546-colour index on the (2, 2) grid: runs fetch
+              FI, dense FI (K3 on 72-word shards) and TU(0.8) (K12), each
+              file equal to phase 9's. (d) cuckoo FI on the (2, 2) grid,
+              its file equal to phase 6's. No meshed engine ever holds
+              the whole dense matrix.
 
 The line before the last is one JSON object of per-kernel numbers; the
 last is {"ok": true, "device": {...}}.
@@ -134,7 +159,9 @@ from fulgor_tpu_torch.ops.hostpack import pack_reads_host
 from fulgor_tpu_torch.core.colorstores import HybridStore
 from fulgor_tpu_torch.ops.intersect import (
     compact_runs, compact_runs_plain, fi_and, fi_and_plain, first_set_bits,
-    first_set_bits_plain, km_scores, km_scores_plain, tu_mask, tu_mask_plain,
+    first_set_bits_plain, km_scores, km_scores_plain, pack_hits,
+    pack_hits_plain, runs_mask, runs_mask_plain, runs_scores,
+    runs_scores_plain, tu_mask, tu_mask_plain,
 )
 from fulgor_tpu_torch.ops.lookup import (
     cuckoo_lookup, cuckoo_lookup_plain, cuckoo_row_gathers,
@@ -150,8 +177,9 @@ from fulgor_tpu_torch.ops.prep import (
     PREP_FIELDS, pack_codes, pack_codes_plain, window_prep, window_prep_plain,
 )
 from fulgor_tpu_torch.ops.pipeline import (
-    query_runs_tu_packed, query_window_csids_packed,
+    query_conservation_packed, query_runs_tu_packed, query_window_csids_packed,
 )
+from fulgor_tpu_torch.parallel.mesh import make_mesh, pad_bits_for_mesh
 from fulgor_tpu_torch.ops.probe import minidict2_probe, minidict2_probe_plain
 from fulgor_tpu_torch.ops.staged import (
     minidict2_staged_probe, minidict2_staged_probe_plain,
@@ -238,6 +266,52 @@ for _probe, _other in (("staged", "anchored_probe"),
         MINI + (f"{_probe}_probe", "tu_mask"),
         CUCKOO + (_other, "fi_and", "km_scores", "compact_runs",
                   "pack_codes") + K9)
+# phase 11: the mesh's kernels, which no earlier path launches, and its
+# paths; MESH_EXACT: the kernels a path launches once a cell a batch (the
+# probe's K1/K2 at least that: the redo pools add theirs)
+MESHK = ("runs_scores", "pack_hits")
+for _p, (_need, _forbid) in list(PATH_KERNELS.items()):
+    PATH_KERNELS[_p] = (_need, _forbid + MESHK)
+_NOT_MESH = CUCKOO + ("pack_codes",) + K9 + PROBES
+PATH_KERNELS.update({
+    "mesh_fi": (MINI + ("compact_runs", "fi_and"),
+                _NOT_MESH + ("tu_mask", "km_scores") + MESHK),
+    # TU's and kmer-matches' redo pools run the mesh's own steps too
+    "mesh_tu": (MINI + ("compact_runs", "runs_scores"),
+                _NOT_MESH + ("fi_and", "tu_mask", "km_scores", "pack_hits")),
+    "mesh_km": (MINI + ("compact_runs",) + MESHK,
+                _NOT_MESH + ("fi_and", "tu_mask", "km_scores")),
+    "mesh_kc": (MINI + ("compact_runs",),
+                _NOT_MESH + ("fi_and", "tu_mask", "km_scores") + MESHK),
+    "mesh_cuckoo_fi": (CUCKOO + ("compact_runs", "fi_and"),
+                       MINI + ("pack_codes", "tu_mask", "km_scores") + K9
+                       + PROBES + MESHK),
+})
+PATH_KERNELS["mesh_dedup"] = PATH_KERNELS["mesh_wide_fi"] = (
+    PATH_KERNELS["mesh_kc"])
+PATH_KERNELS["mesh_wide_dense_fi"] = PATH_KERNELS["mesh_array_fi"] = (
+    PATH_KERNELS["mesh_fi"])
+PATH_KERNELS["mesh_wide_tu"] = PATH_KERNELS["mesh_array_tu"] = (
+    PATH_KERNELS["mesh_tu"])
+MESH_EXACT = {
+    "mesh_fi": ("compact_runs", "fi_and"),
+    "mesh_tu": ("compact_runs", "runs_scores"),
+    "mesh_km": ("compact_runs",) + MESHK,
+    "mesh_kc": (),  # its inline redo runs K6 too
+    "mesh_dedup": ("compact_runs",),
+    "mesh_wide_fi": ("compact_runs",),
+    "mesh_wide_dense_fi": ("compact_runs", "fi_and"),
+    "mesh_wide_tu": ("compact_runs", "runs_scores"),
+    "mesh_cuckoo_fi": ("cuckoo_lookup", "compact_runs", "fi_and"),
+    "mesh_array_fi": ("compact_runs", "fi_and"),
+    "mesh_array_tu": ("compact_runs", "runs_scores"),
+}
+# the paths whose redo pools run the mesh's colour step: each redo batch
+# adds one launch a cell of their MESH_EXACT kernels
+MESH_REDO = ("mesh_tu", "mesh_km", "mesh_wide_tu")
+# K12's colour shards at 512 colours; the grid of four cells on one card
+MESH_P, GRID = (1, 2, 4), (2, 2)
+MESH_PASSES = 3
 CUCKOO_PASSES = 3
 # the run budget forced on kc and dedup for their overflow runs
 FORCED_RUNS = 2
@@ -1541,7 +1615,8 @@ def phase_wide(idx, eng, codes, reads, tmp, array, mirror):
         f"{tables} bytes; the dense matrix would be {dense} bytes; engine "
         f"_bits None, index _dense_bits None, {nd._row_n} rows decoded on "
         f"demand")
-    return dict(row=row, launches=launches9, rates=rates)
+    return dict(row=row, launches=launches9, rates=rates, index=wide,
+                out=out)
 
 
 def call_ms(fn, names, reps, flush=None):
@@ -1797,6 +1872,280 @@ def phase_probes(idx, eng, reads, tmp, fi, tu):
     return out
 
 
+def phase_mesh_kernels(eng, wide, codes):
+    """Phase 11 (a) on phase 4's batch, bit for bit (tolerance 0): K12 over
+    K6's runs at R = Wk in mask (tau TAU) and u16 mode on every colour shard
+    of the 512-colour dense at MESH_P and of the wide index's at P = 2; K13
+    with and without narrowing, on the batch and on one cell's reads;
+    query_conservation_packed (K1 -> K2 -> K13) against its plain
+    composition, small_csid on and off. K12 timed at the (2, 2) grid's
+    shape (a data row's B / 2 reads, shard 0 of 2, mask mode), K13 at one
+    cell's (B / 4 reads, no narrowing, as the mesh's kmer-matches).
+    -> (K12's row, K13's row)."""
+    dev = eng.device
+    chunk = np.full((BATCH, WIDTH), 4, dtype=np.uint8)
+    n = min(BATCH, len(codes))
+    chunk[:n, :READ_LEN] = codes[:n]
+    c2, bd = (torch.from_numpy(a).to(dev) for a in pack_reads_host(chunk))
+    hit, csid, _ovf = query_window_csids_packed(
+        eng.table, c2, bd, k=K, width=WIDTH, dparams=eng.dparams,
+        probe_budget=eng._pb)
+    Wk = WIDTH - K + 1
+    rc, _start, rl, _total, npos = compact_runs(hit, csid, Wk)
+    tab = eng._minscore_tab(TAU, Wk)
+    nruns = int((rc != -1).sum())
+    err12 = 0
+    shard0 = None
+    for what, dense_np, C, Ps in (
+            ("512", eng.idx.dense_color_bits(), eng.idx.num_colors, MESH_P),
+            (str(WIDE_C), wide.dense_color_bits(), WIDE_C, (2,))):
+        for P in Ps:
+            padded = pad_bits_for_mesh(dense_np, P)
+            w = padded.shape[1] // P
+            for q in range(P):
+                shard = torch.from_numpy(np.ascontiguousarray(
+                    padded[:, q * w: (q + 1) * w]).view(np.int32)).to(dev)
+                ncol = max(0, min(32 * w, C - 32 * w * q))
+                got = (runs_mask(shard, rc, rl, npos, tab, ncol),
+                       runs_scores(shard, rc, rl, 32 * w))
+                want = (runs_mask_plain(shard, rc, rl, npos, tab, ncol),
+                        runs_scores_plain(shard, rc, rl, 32 * w).to(
+                            torch.int16))
+                torch.cuda.synchronize()
+                e = max_abs_err(got, want)
+                err12 = max(err12, e)
+                log(f"[mesh] runs_scores, {what} colours, shard {q} of {P} "
+                    f"({w} words, {ncol} colours): "
+                    f"{int(got[0].ne(0).any(dim=1).sum())} of {BATCH} reads "
+                    f"pass tau {TAU}, max score {int(got[1].max())}, "
+                    f"max_abs_err {e}")
+                if what == "512" and P == 2 and q == 0:
+                    shard0 = shard
+    # the (2, 2) grid's K12 launch: a data row's reads on shard 0 of 2
+    h = BATCH // 2
+    rcr, rlr, npr = rc[:h].contiguous(), rl[:h].contiguous(), npos[:h]
+    w = shard0.shape[1]
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    ms, warm = kernel_times(lambda: runs_mask(shard0, rcr, rlr, npr, tab,
+                                              32 * w), "runs_scores", flush)
+    ms16, warm16 = kernel_times(lambda: runs_scores(shard0, rcr, rlr, 32 * w),
+                                "runs_scores", flush)
+    valid = rcr != -1
+    distinct = torch.unique(rcr[valid]).numel()
+    runs_h = int(valid.sum())
+    log(f"[mesh] runs_scores at the (2, 2) grid's shape ({h} reads x R = "
+        f"{Wk}, {runs_h} runs, {w}-word shard): u16 mode {ms16:.4f} ms cold "
+        f"L2, {warm16:.4f} warm; the batch holds {nruns} runs")
+    row12 = dict(
+        name="runs_scores", source="fulgor_tpu_torch/csrc/union.cu",
+        replaces="fulgor_tpu/ops/intersect.py:264", max_abs_err=err12,
+        ms=ms, warm_ms=warm,
+        plain_ms=time_ms(lambda: runs_mask_plain(shard0, rcr, rlr, npr, tab,
+                                                 32 * w), REPS_PLAIN),
+        # every run csid slot scanned (a valid run may stand in any slot),
+        # the u16 count of each valid run, npos, one row a distinct csid,
+        # the table, the mask written; a multiply-add a run and colour
+        bytes=h * Wk * 4 + runs_h * 2 + h * 4 + distinct * w * 4
+        + (Wk + 1) * 4 + h * w * 4, ops=runs_h * 32 * w + h * 32 * w)
+
+    # K13
+    err13 = 0
+    b = BATCH // 4
+    for rows in (BATCH, b):
+        for narrow in (False, True):
+            hh, cc = hit[:rows].contiguous(), csid[:rows].contiguous()
+            got = pack_hits(hh, cc if narrow else None)
+            want = pack_hits_plain(hh, cc if narrow else None)
+            torch.cuda.synchronize()
+            e = max_abs_err(tuple(x for x in got if x is not None),
+                            tuple(x for x in want if x is not None))
+            err13 = max(err13, e)
+            log(f"[mesh] pack_hits on {rows} reads, narrowing {narrow}: "
+                f"max_abs_err {e}")
+    hb = hit[:b].contiguous()
+    ms13, warm13 = kernel_times(lambda: pack_hits(hb), "pack_hits", flush)
+    del flush
+    nw = (Wk + 31) // 32
+    row13 = dict(
+        name="pack_hits", source="fulgor_tpu_torch/csrc/hits.cu",
+        replaces="fulgor_tpu/ops/pipeline.py:338", max_abs_err=err13,
+        ms=ms13, warm_ms=warm13,
+        plain_ms=time_ms(lambda: pack_hits_plain(hb), REPS_PLAIN),
+        bytes=b * Wk + b * nw * 4, ops=b * Wk * 2)
+
+    # query_conservation_packed against its plain composition
+    slots, text32, skew = eng.table
+    m, num_slots = eng.dparams
+    prep = window_prep_plain(c2, bd, width=WIDTH, k=K, m=M)
+    ph, pc, po = minidict2_probe_plain(
+        slots, text32, skew, prep, k=K, m=m, num_slots=num_slots,
+        vb=eng._pb[0], sc=eng._pb[1])
+    for small in (False, True):
+        got = query_conservation_packed(
+            eng.table, c2, bd, k=K, width=WIDTH, small_csid=small,
+            dparams=eng.dparams, probe_budget=eng._pb)
+        hw, c16 = pack_hits_plain(ph, pc if small else None)
+        want = (hw, c16 if small else pc, po.any(dim=1))
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        err13 = max(err13, e)
+        log(f"[mesh] query_conservation_packed, small_csid {small}, against "
+            f"its plain composition: max_abs_err {e}")
+    row13["max_abs_err"] = err13
+    for r in (row12, row13):
+        finish_row(r, "mesh")
+    return row12, row13
+
+
+def check_cells(path, launches, cells, batches, redo=0):
+    """Each kernel of MESH_EXACT[path] launched once a cell a batch (the
+    stream's batches, and the redo's where MESH_REDO runs the mesh's step
+    for them), and the probe's K1 and K2 (or K7) at least that."""
+    want = cells * (batches + (redo if path in MESH_REDO else 0))
+    probe = ("cuckoo_lookup",) if path == "mesh_cuckoo_fi" else MINI
+    bad = ([k for k in MESH_EXACT[path] if launches[k] != want]
+           + [k for k in probe if launches[k] < want])
+    if bad:
+        raise RuntimeError(f"{path}: {cells} cells x ({batches} batches + "
+                           f"{redo} redo batches), launches of {bad} are not "
+                           f"{want}: {launches}")
+
+
+def mesh_pass(path, fn, eng, num_reads):
+    """fn() once under timed_passes, then its launches checked against the
+    engine's cells, batches and redo batches. -> (stats, launches)."""
+    batches = -(-num_reads // eng._batch_for_width(WIDTH))
+    redo0 = eng.redo_batches
+    _r, st, launches = timed_passes(path, fn, 1)
+    check_cells(path, launches, eng.mesh.size, batches,
+                eng.redo_batches - redo0)
+    return st, launches
+
+
+def phase_mesh(eng, cidx, wide, reads, codes, tmp, fi, tu, km, kc, dedup,
+               array, wide_out):
+    """Phase 11 (b)-(d): the engine on a GRID of cells on the card of the
+    one-device engine `eng` (FI and TU(TAU) timed in turns with it) and on
+    use_mesh=True's (1, 1) grid, the wide index and the cuckoo index on the
+    GRID; every file equal to the one-device file named for it. -> the
+    launches of the TU and kmer-matches passes on the GRID and the FI and
+    TU medians."""
+    idx = eng.idx
+    num_reads = len(codes)
+    grid = make_mesh([eng.device] * (GRID[0] * GRID[1]), *GRID)
+    one = QueryEngine(idx, use_mesh=True)
+    if one.mesh is None or one.mesh.shape != {"data": 1, "color": 1}:
+        raise RuntimeError(f"use_mesh=True on one card gave "
+                           f"{one.mesh and one.mesh.shape}")
+    meng = QueryEngine(idx, mesh=grid)
+    refs = {"fi": fi["out"], "tu": tu["ascii"], "dedup": dedup["out"],
+            "km": km["out"], "kc": kc["out"]}
+    tools = {"fi": ("pseudoalign_file", {}),
+             "tu": ("pseudoalign_file", {"threshold": TAU}),
+             "dedup": ("pseudoalign_file", {"deduplicate": True}),
+             "km": ("kmer_matches_file", {}),
+             "kc": ("kmer_conservation_file", {})}
+    out = {"rates": {}}
+    for tool in ("fi", "tu"):
+        method, kw = tools[tool]
+
+        def fn(o=os.devnull, method=method, kw=kw, e=meng):
+            return getattr(e, method)(reads, o, **kw)
+
+        fn()  # warm-up
+        # in turns with one-device passes of the same tool: the host's
+        # speed drifts within a call (phase 10)
+        rates, base = [], []
+        for _ in range(MESH_PASSES):
+            base += timed_passes(tool, lambda fn=fn: fn(e=eng), 1)[0]
+            redo0 = meng.redo_batches
+            r, _st, launches = timed_passes(f"mesh_{tool}", fn, 1)
+            check_cells(f"mesh_{tool}", launches, grid.size,
+                        -(-num_reads // meng._batch_for_width(WIDTH)),
+                        meng.redo_batches - redo0)
+            rates += r
+        profiled_pass(f"mesh_{tool}", fn)
+        out["rates"][tool] = rate = statistics.median(rates)
+        turns = statistics.median(base)
+        p5 = (fi if tool == "fi" else tu)["rate"]
+        log(f"[mesh] {tool} on the {GRID} grid: median {rate:.1f} reads/s "
+            f"({min(rates):.1f}-{max(rates):.1f}) against one device's "
+            f"{turns:.1f} in turns ({rate / turns:.3f} x) and phase 5's "
+            f"median {p5:.1f} ({rate / p5:.3f} x)")
+    for name, e in (("grid", meng), ("one", one)):
+        for tool, (method, kw) in tools.items():
+            path = os.path.join(tmp, f"mesh_{name}.{tool}")
+            st, launches = mesh_pass(
+                f"mesh_{tool}", lambda m=method, kw=kw, p=path: getattr(
+                    e, m)(reads, p, **kw), e, num_reads)
+            if name == "grid":
+                out[f"{tool}_launches"] = launches
+            same = (same_bytes(path, refs[tool]) if tool in ("km", "kc")
+                    else same_records(path, refs[tool]))
+            log(f"[mesh] {name} {e.mesh.shape}: {tool} {st['num_redo']} "
+                f"reads redone; the same "
+                f"{'bytes' if tool in ('km', 'kc') else 'records'} as phase "
+                f"5's file: {same}")
+            if not same:
+                raise RuntimeError(f"the meshed {tool} ({name}) differs from "
+                                   "the one-device file")
+            os.remove(path)
+    # the array API's FI and TU on the grid's colour shards
+    lens = np.full(num_reads, codes.shape[1], dtype=np.int64)
+    for tool, kw in (("fi", {}), ("tu", {"threshold": TAU})):
+        path = f"mesh_array_{tool}"
+        lists, _rate, launches = array_pass(
+            path, lambda kw=kw: meng.pseudoalign_codes(codes, lens, **kw),
+            num_reads)
+        check_cells(path, launches, grid.size,
+                    -(-num_reads // meng._batch_for_width(WIDTH)))
+        bad = [q for q in range(num_reads)
+               if not np.array_equal(lists[q], array[tool][q])]
+        log(f"[mesh] array API {tool} on the {GRID} grid: {len(bad)} reads "
+            "differ from phase 8's")
+        if bad:
+            raise RuntimeError(f"the meshed array API's {tool} differs from "
+                               f"the one-device one on reads {bad[:10]}")
+    whole = [e.mesh.shape for e in (meng, one) if e._bits is not None]
+    del one, meng
+
+    # (c) the wide index, (d) the cuckoo index, on the grid
+    weng = QueryEngine(wide, mesh=grid)
+    if not (weng.use_runs_fetch and not weng.use_lists
+            and not weng.use_tu_runs):
+        raise RuntimeError("the meshed wide engine does not take the runs "
+                           "fetch")
+    cmeng = QueryEngine(cidx, mesh=grid)
+    runs = (("mesh_wide_fi", weng, {}, wide_out["fi"]),
+            ("mesh_wide_dense_fi", weng, {}, wide_out["fi"]),
+            ("mesh_wide_tu", weng, {"threshold": TAU}, wide_out["tu"]),
+            ("mesh_cuckoo_fi", cmeng, {}, os.path.join(tmp, "cuckoo.fi")))
+    for path, e, kw, ref in runs:
+        f = os.path.join(tmp, f"{path}.tsv")
+        keep = e.use_runs_fetch
+        if e is weng:  # dense FI: K3 on the shards instead
+            e.use_runs_fetch = path != "mesh_wide_dense_fi"
+        try:
+            st, _l = mesh_pass(path, lambda e=e, f=f, kw=kw:
+                               e.pseudoalign_file(reads, f, **kw), e,
+                               num_reads)
+        finally:
+            e.use_runs_fetch = keep
+        same = same_records(f, ref)
+        log(f"[mesh] {path} on the {GRID} grid: {st['num_redo']} reads "
+            f"redone, {st['elapsed']:.3f} s; the same records as "
+            f"{'phase 6' if e is cmeng else 'phase 9'}'s file: {same}")
+        if not same:
+            raise RuntimeError(f"{path} differs from the one-device file")
+        os.remove(f)
+    whole += [e.mesh.shape for e in (weng, cmeng) if e._bits is not None]
+    if whole:
+        raise RuntimeError(f"meshed engines {whole} uploaded the whole dense "
+                           "matrix")
+    log("[mesh] no meshed engine uploaded the whole dense matrix")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--genomes", type=int, default=512)
@@ -1830,6 +2179,9 @@ def main():
         rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], err2)
         rows += probe_rows
         probes = phase_probes(idx, eng, reads, tmp, fi, tu)
+        rows += phase_mesh_kernels(eng, wide["index"], codes)
+        mesh = phase_mesh(eng, ceng.idx, wide["index"], reads, codes, tmp,
+                          fi, tu, km, kc, dedup, array, wide["out"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all; end to end "
@@ -1843,13 +2195,17 @@ def main():
         f"(dense FI {wide['rates']['dense_fi']:.1f}), TU({TAU}) "
         f"{wide['rates']['tu']:.1f} reads/s (medians); opt-in probes "
         f"{ {k: round(v[1], 1) for k, v in probes.items()} } reads/s "
-        f"(medians)")
+        f"(medians); on a {GRID} grid of this card FI "
+        f"{mesh['rates']['fi']:.1f}, TU({TAU}) {mesh['rates']['tu']:.1f} "
+        f"reads/s (medians)")
     # each kernel's launches on its own path's last timed run
     path_of = {"tu_mask": tu, "km_scores": km, "compact_runs": kc,
                "cuckoo_lookup": cuckoo, "pack_codes": array,
                "first_set_bits": wide,
                "staged_probe": {"launches": probes["staged_fi"][0]},
-               "anchored_probe": {"launches": probes["anchored_fi"][0]}}
+               "anchored_probe": {"launches": probes["anchored_fi"][0]},
+               "runs_scores": {"launches": mesh["tu_launches"]},
+               "pack_hits": {"launches": mesh["km_launches"]}}
     out = []
     for r in rows:
         out.append(dict(

@@ -137,7 +137,13 @@ def main(argv=None):
                        default=32768)
         q.add_argument("--device", dest="device", default=None,
                        help="torch device (default: cuda; 'cpu' runs the "
-                            "plain PyTorch versions of the kernels)")
+                            "plain PyTorch versions of the kernels). With "
+                            "several cards visible and no device named, "
+                            "queries shard over a mesh of them all, which "
+                            "has run on one card only (the copies and "
+                            "stream waits between cards are unchecked): "
+                            "name a card, e.g. cuda:0, for the checked "
+                            "one-device path")
         q.add_argument("--verbose", action="store_true")
 
     q = sub.add_parser("pseudoalign", help="pseudoalign reads")

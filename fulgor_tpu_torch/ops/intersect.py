@@ -1,5 +1,6 @@
-"""Colour stage of the query steps: full intersection (kernel K3) and
-threshold-union scores (kernels K4 and K5).
+"""Colour stage of the query steps: full intersection (kernel K3),
+threshold-union scores (kernels K4, K5 and K12), run lists (K6), colour
+lists (K9) and hit words (K13).
 
 K3 `fi_and` is the counterpart of fulgor_tpu/ops/intersect.py
 full_intersection_windows, its one-hot twin full_intersection_onehot and
@@ -9,13 +10,20 @@ unmapped read (no positive window) all-zero. AND is idempotent, so the
 kernel skips a window whose csid equals the last one it ANDed — the
 in-kernel form of compact_runs, exact with no run budget and no overflow.
 
-K4 `tu_mask` and K5 `km_scores` replace threshold_union_scores_windows,
-_onehot and _runs: score[b, c] = the number of positive windows of read b
-whose colour set holds colour c (every positive window counts, repeats
+K4 `tu_mask` and K5 `km_scores` replace threshold_union_scores_windows
+and _onehot: score[b, c] = the number of positive windows of read b whose
+colour set holds colour c (every positive window counts, repeats
 included). K4 thresholds the scores on the card against a host-made
 min-score table, as query_tu_lists_packed does, and packs the mask in
 pack_bool_bits' layout; K5 returns the scores as int16 with the windows'
 positivity bits, as query_kmer_matches_packed2 does.
+
+K12 `runs_scores` replaces compact_runs -> threshold_union_scores_runs,
+the run-weighted form the mesh steps need (parallel/mesh.py): the same
+scores from K6's (csid, count) runs, INVALID-padded, gathered from other
+cells and scored against a colour shard; `runs_mask` thresholds them as K4
+does (the mesh TU), `runs_scores` returns them as int16 (the mesh
+kmer-matches).
 
 K6 `compact_runs` replaces mask_positions, _run_bounds, compact_runs and
 compact_runs_starts: each read's runs of consecutive positive windows with
@@ -27,6 +35,10 @@ and query_runs_tu_packed.
 K9 `first_set_bits` replaces first_set_bits: each (B, C32) result row's
 colour count and its first T colour ids, ascending, the lists fetch of
 query_fi_lists_packed and query_tu_lists_packed.
+
+K13 `pack_hits` replaces _pack_hits and query_conservation_packed's u16
+narrowing: the windows' positivity as bit words, and csid narrowed to u16
+(0xFFFF where negative) in the same pass.
 
 dense (S, C32), csid (B, Wk) int32 bit patterns, hit (B, Wk) bool. Each
 wrapper launches its csrc/ kernel for CUDA tensors and runs the plain
@@ -335,3 +347,168 @@ def first_set_bits(bits, T: int):
     kernels.check(rc, "first_set_bits")
     kernels.launches["first_set_bits"] += 1
     return count, lists
+
+
+def _run_weights(run_cnt):
+    """K6's int16 run lengths (u16 bit patterns) or int32 counts -> int32."""
+    if run_cnt.dtype == torch.int16:
+        return run_cnt.to(torch.int32) & 0xFFFF
+    return run_cnt.to(torch.int32)
+
+
+def runs_scores_plain(dense, run_csid, run_cnt, num_colors: int):
+    """Plain PyTorch run-weighted scores (any device), as fulgor_tpu's
+    threshold_union_scores_runs: per run column one row gather, unpacked to
+    bits and added times the run's count where the run is valid (csid not
+    INVALID). -> (B, num_colors) int32."""
+    B, _R = run_csid.shape
+    C32 = dense.shape[1]
+    valid = run_csid != -1
+    safe = torch.where(valid, run_csid.to(torch.int64) & 0xFFFFFFFF, 0)
+    w = torch.where(valid, _run_weights(run_cnt), 0)
+    shifts = torch.arange(32, dtype=torch.int32, device=dense.device)
+    acc = torch.zeros((B, C32 * 32), dtype=torch.int32, device=dense.device)
+    for r in valid.any(dim=0).nonzero().flatten().tolist():
+        bits = (dense[safe[:, r]][:, :, None] >> shifts) & 1
+        acc += bits.reshape(B, C32 * 32) * w[:, r, None]
+    return acc[:, :num_colors]
+
+
+def runs_mask_plain(dense, run_csid, run_cnt, npos, minscore,
+                    num_colors: int):
+    """Plain run-weighted threshold-union mask: score >= minscore[npos] and
+    npos > 0 (a count past the table passes nothing), packed to (B, C32)
+    int32 bit patterns with the colours from num_colors on 0."""
+    scores = runs_scores_plain(dense, run_csid, run_cnt, num_colors)
+    npos = npos.to(torch.int64)
+    n_ms = minscore.shape[0]
+    need = torch.where(npos < n_ms,
+                       minscore.to(torch.int64)[npos.clamp(max=n_ms - 1)],
+                       1 << 40)
+    mask = (scores >= need[:, None]) & (npos > 0)[:, None]
+    return pack_bits(mask, dense.shape[1])
+
+
+def _check_runs_inputs(name, dense, run_csid, run_cnt, num_colors):
+    B, R = run_csid.shape
+    if (dense.dtype != torch.int32 or run_csid.dtype != torch.int32
+            or run_cnt.dtype not in (torch.int16, torch.int32)
+            or tuple(run_cnt.shape) != (B, R)
+            or run_csid.device != dense.device
+            or run_cnt.device != dense.device
+            or not (dense.is_contiguous() and run_csid.is_contiguous()
+                    and run_cnt.is_contiguous())):
+        raise ValueError(f"{name}: dense (S, C32) int32, run_csid (B, R) int32 "
+                         "and run_cnt (B, R) int16 or int32, contiguous on "
+                         "one device")
+    if not (0 <= num_colors <= 32 * dense.shape[1] and 0 < R <= MAX_WK):
+        raise ValueError(f"{name}: needs 0 <= num_colors <= 32 * C32 and "
+                         f"0 < R <= {MAX_WK}")
+
+
+def _launch_runs_scores(dense, run_csid, run_cnt, num_colors, npos, minscore,
+                        out):
+    lib = kernels.library()
+    B, R = run_csid.shape
+    rc = lib.fulgor_runs_scores(
+        dense.data_ptr(), dense.shape[1], num_colors, run_csid.data_ptr(),
+        run_cnt.data_ptr(), run_cnt.element_size(), B, R,
+        None if npos is None else npos.data_ptr(),
+        None if minscore is None else minscore.data_ptr(),
+        0 if minscore is None else minscore.shape[0], out.data_ptr(),
+        kernels.stream_of(dense))
+    kernels.check(rc, "runs_scores")
+    kernels.launches["runs_scores"] += 1
+    return out
+
+
+def runs_scores(dense, run_csid, run_cnt, num_colors: int):
+    """Run-weighted scores of each read (K12, u16 mode) -> (B, num_colors)
+    int16 bit patterns of u16: over the read's valid runs, the run's count
+    where its colour set holds the colour. The counts of one read sum to at
+    most its window count."""
+    if dense.device.type == "cpu":
+        return runs_scores_plain(dense, run_csid, run_cnt,
+                                 num_colors).to(torch.int16)
+    if dense.device.type != "cuda":
+        raise ValueError(f"runs_scores: unsupported device {dense.device}")
+    _check_runs_inputs("runs_scores", dense, run_csid, run_cnt, num_colors)
+    out = torch.empty((run_csid.shape[0], num_colors), dtype=torch.int16,
+                      device=dense.device)
+    if out.numel() == 0:
+        return out
+    return _launch_runs_scores(dense, run_csid, run_cnt, num_colors, None,
+                               None, out)
+
+
+def runs_mask(dense, run_csid, run_cnt, npos, minscore, num_colors: int):
+    """Run-weighted threshold-union mask (K12, mask mode) -> (B, C32) int32
+    bit patterns: colour c < num_colors is set iff npos > 0 and its
+    run-weighted score reaches minscore[npos] (npos (B,) int32, the read's
+    positive windows; minscore 1-D int32, floor(npos * tau) made on the
+    host)."""
+    if dense.device.type == "cpu":
+        return runs_mask_plain(dense, run_csid, run_cnt, npos, minscore,
+                               num_colors)
+    if dense.device.type != "cuda":
+        raise ValueError(f"runs_mask: unsupported device {dense.device}")
+    _check_runs_inputs("runs_mask", dense, run_csid, run_cnt, num_colors)
+    B = run_csid.shape[0]
+    if (tuple(npos.shape) != (B,) or minscore.dim() != 1
+            or minscore.shape[0] == 0
+            or any(t.dtype != torch.int32 or t.device != dense.device
+                   or not t.is_contiguous() for t in (npos, minscore))):
+        raise ValueError("runs_mask: npos (B,) and minscore (n > 0,) must be "
+                         "contiguous int32 tensors on the tables' device")
+    out = torch.empty((B, dense.shape[1]), dtype=torch.int32,
+                      device=dense.device)
+    if B == 0:
+        return out
+    return _launch_runs_scores(dense, run_csid, run_cnt, num_colors, npos,
+                               minscore, out)
+
+
+def pack_hits_plain(hit, csid=None):
+    """Plain hit words (any device): (hitw (B, ceil(Wk/32)) int32 in
+    pack_bool_bits' layout, csid16 (B, Wk) int16 bit patterns of u16 —
+    csid's low 16 bits where hit, 0xFFFF where not — or None without
+    csid)."""
+    Wk = hit.shape[1]
+    hitw = pack_bits(hit, (Wk + 31) // 32)
+    if csid is None:
+        return hitw, None
+    v = torch.where(hit, csid, 0xFFFF) & 0xFFFF
+    return hitw, torch.where(v >= 0x8000, v - 0x10000, v).to(torch.int16)
+
+
+def pack_hits(hit, csid=None):
+    """Each read's window positivity as bit words, and with csid its window
+    csids narrowed to u16 in the same pass (K13) -> (hitw (B, ceil(Wk/32))
+    int32, csid16 (B, Wk) int16 or None), as pack_hits_plain."""
+    if hit.device.type == "cpu":
+        return pack_hits_plain(hit, csid)
+    if hit.device.type != "cuda":
+        raise ValueError(f"pack_hits: unsupported device {hit.device}")
+    B, Wk = hit.shape
+    if (hit.dtype != torch.bool or not hit.is_contiguous()
+            or (csid is not None
+                and (csid.dtype != torch.int32 or tuple(csid.shape) != (B, Wk)
+                     or csid.device != hit.device
+                     or not csid.is_contiguous()))):
+        raise ValueError("pack_hits: hit (B, Wk) bool and csid (B, Wk) int32, "
+                         "contiguous on one device")
+    hitw = torch.empty((B, (Wk + 31) // 32), dtype=torch.int32,
+                       device=hit.device)
+    csid16 = (None if csid is None else
+              torch.empty((B, Wk), dtype=torch.int16, device=hit.device))
+    if B == 0 or Wk == 0:
+        return hitw.zero_(), csid16
+    lib = kernels.library()
+    rc = lib.fulgor_pack_hits(hit.data_ptr(),
+                              None if csid is None else csid.data_ptr(), B, Wk,
+                              hitw.data_ptr(),
+                              None if csid16 is None else csid16.data_ptr(),
+                              kernels.stream_of(hit))
+    kernels.check(rc, "pack_hits")
+    kernels.launches["pack_hits"] += 1
+    return hitw, csid16

@@ -24,7 +24,9 @@ import os
 import torch
 
 from .anchored import minidict2_anchored_probe
-from .intersect import compact_runs, fi_and, first_set_bits, km_scores, tu_mask
+from .intersect import (
+    compact_runs, fi_and, first_set_bits, km_scores, pack_hits, tu_mask,
+)
 from .lookup import cuckoo_lookup
 from .minidict2 import SKEW_CAND, VERIFY_BUDGET
 from .prep import pack_codes, window_prep
@@ -187,6 +189,20 @@ def query_distinct_runs_packed(table, codes2, bad, *, k: int, width: int,
     return run_csid, ovf.any(dim=1), total > R, csid
 
 
+def query_conservation_packed(table, codes2, bad, *, k: int, width: int,
+                              small_csid: bool, dparams, probe_budget=None):
+    """K1 -> K2 (or K7) -> K13 -> (hitw (B, ceil(Wk/32)) int32, csid (B, Wk)
+    int32 or, with small_csid, (B, Wk) int16 bit patterns of u16 with 0xFFFF
+    where negative, ovf (B,) bool) (fulgor_tpu pipeline.py:347): the
+    windows' positivity as bit words and their csids, narrowed when every
+    set id fits 16 bits. No engine path of either package calls it."""
+    hit, csid, ovf = query_window_csids_packed(
+        table, codes2, bad, k=k, width=width, dparams=dparams,
+        probe_budget=probe_budget)
+    hitw, csid16 = pack_hits(hit, csid if small_csid else None)
+    return hitw, csid16 if small_csid else csid, ovf.any(dim=1)
+
+
 # --------------------------------------------------------------------------
 # Unpacked steps (the array API): K8 packs the (B, L) codes on the device;
 # its words, viewed as bytes, are the host packer's codes2/bad, so the
@@ -196,7 +212,7 @@ def query_distinct_runs_packed(table, codes2, bad, *, k: int, width: int,
 # --------------------------------------------------------------------------
 
 
-def _packed(codes):
+def pack_unpacked(codes):
     """(B, L) uint8 codes -> (codes2, bad, padded width) via K8."""
     B, L = codes.shape
     W = -(-L // 32) * 32
@@ -209,7 +225,7 @@ def _packed(codes):
 def query_window_csids(table, codes, *, k: int, dparams, probe_budget=None):
     """K8 -> K1 -> K2 (or K8 -> K7) -> (hit, csid, ovf), each (B, L-k+1)
     (fulgor_tpu pipeline.py:200)."""
-    codes2, bad, W = _packed(codes)
+    codes2, bad, W = pack_unpacked(codes)
     Wk = codes.shape[1] - k + 1
     return tuple(t[:, :Wk] for t in query_window_csids_packed(
         table, codes2, bad, k=k, width=W, dparams=dparams,
@@ -220,7 +236,7 @@ def query_full_intersection(table, dense_bits, codes, *, k: int, dparams,
                             probe_budget=None):
     """K8 -> K1 -> K2 (or K7) -> K3 -> (result bits (B, C32) int32, ovf
     (B,) bool) (fulgor_tpu pipeline.py:179)."""
-    codes2, bad, W = _packed(codes)
+    codes2, bad, W = pack_unpacked(codes)
     return query_full_intersection_packed(
         table, dense_bits, codes2, bad, k=k, width=W, dparams=dparams,
         probe_budget=probe_budget)
@@ -231,7 +247,7 @@ def query_threshold_union(table, dense_bits, codes, *, k: int,
     """K8 -> K1 -> K2 (or K7) -> K5 -> (scores (B, C) int16 bit patterns of
     u16 counts, npos (B,) int32, ovf (B,) bool) (fulgor_tpu pipeline.py:190,
     whose scores are the same counts as f32)."""
-    codes2, bad, W = _packed(codes)
+    codes2, bad, W = pack_unpacked(codes)
     return query_threshold_union_packed(
         table, dense_bits, codes2, bad, k=k, width=W, num_colors=num_colors,
         dparams=dparams, probe_budget=probe_budget)
