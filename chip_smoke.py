@@ -122,6 +122,32 @@ last line, which is printed only when every phase passed:
               file equal to phase 9's. (d) cuckoo FI on the (2, 2) grid,
               its file equal to phase 6's. No meshed engine ever holds
               the whole dense matrix.
+ 12. v1       the v1 minimizer dictionary (ops/minidict.py) of phase 3's
+              unitigs: built on the host (seconds, NE, NB, bytes and bytes
+              a k-mer logged), its tables put on the card once; its lookup
+              (K8 -> K1 -> K14 minidict_v1_verify) on phase 4's batch at
+              max_candidates 4 and 8, on phase 7's mirror reads and on 64
+              seeded reads of 3,000 bases cut from the unitig text (in
+              pieces of 1,024 overlapping by k - 1), the launch counts
+              reset just before and checked just after (one K8, K1 and K14
+              a call, nothing else). Each result equal to the plain
+              version on the card bit for bit (the long reads' to the
+              unsplit one), the ovf windows logged; K14 alone against its
+              plain version on the same K1 fields, and timed as phase 4
+              times the others; at 8 candidates K14 equal to K2 at the
+              redo budget on every window both decide (two dictionaries
+              over one ccdBG) and to the host mirror on every window it
+              decides.
+ 13. cards    only where more than one card is visible (a line says it was
+              not run on one): phase 11's (2, 2) grid over four distinct
+              cards (make_mesh()'s default grid where fewer): FI, TU(0.8)
+              and kmer-matches once each to a file equal to phase 5's,
+              every card launching K1, K2, K6 and K3 in a profiled FI pass,
+              FI timed in turns with one card; then QueryEngine(idx) with
+              no device named (the default mesh over every card), FI and
+              TU(0.8) to files equal to phase 5's. `--cards-only` runs
+              phases 1-3, phase 5's FI, TU and kmer-matches on the first
+              card, and this phase.
 
 The line before the last is one JSON object of per-kernel numbers; the
 last is {"ok": true, "device": {...}}.
@@ -169,6 +195,10 @@ from fulgor_tpu_torch.ops.lookup import (
 from fulgor_tpu_torch.ops import pipeline as pipeline_mod
 from fulgor_tpu_torch.ops.anchored import (
     minidict2_anchored_probe, minidict2_anchored_probe_plain,
+)
+from fulgor_tpu_torch.ops.minidict import (
+    V1_FIELDS, _text_kmer, build_minidict, lookup_minidict_batch_plain,
+    minidict_v1_verify, minidict_v1_verify_plain,
 )
 from fulgor_tpu_torch.ops.minidict2 import (
     anchor_budget, lookup_host_exact, reprobe_budget,
@@ -293,6 +323,14 @@ PATH_KERNELS["mesh_wide_dense_fi"] = PATH_KERNELS["mesh_array_fi"] = (
     PATH_KERNELS["mesh_fi"])
 PATH_KERNELS["mesh_wide_tu"] = PATH_KERNELS["mesh_array_tu"] = (
     PATH_KERNELS["mesh_tu"])
+# phase 12: the v1 dictionary's lookup, K8 -> K1 -> K14, which no other
+# path launches
+V1K = ("minidict_v1_verify",)
+for _p, (_need, _forbid) in list(PATH_KERNELS.items()):
+    PATH_KERNELS[_p] = (_need, _forbid + V1K)
+PATH_KERNELS["v1"] = (("pack_codes", "window_prep") + V1K,
+                      tuple(n for n in kernels.launches
+                            if n not in ("pack_codes", "window_prep") + V1K))
 MESH_EXACT = {
     "mesh_fi": ("compact_runs", "fi_and"),
     "mesh_tu": ("compact_runs", "runs_scores"),
@@ -324,6 +362,10 @@ WIDE_PASSES, FORCED_T = 3, 3
 STAGED_BUDGETS = ((2, 8, 4, 16), (1, 8, 4, 2))
 ANCHORED_BUDGETS = ((None, None), (4, 2))
 PROBE_PASSES = 3
+# phase 12: the v1 lookup's candidate budgets (4, its default, is timed),
+# and its long reads cut from the unitig text
+V1_CANDIDATES = (4, 8)
+V1_LONG_READS, V1_LONG_LEN = 64, 3000
 
 
 def log(msg):
@@ -2146,11 +2188,302 @@ def phase_mesh(eng, cidx, wide, reads, codes, tmp, fi, tu, km, kc, dedup,
     return out
 
 
+def v1_work(tabs, prep, max_candidates):
+    """What K14 reads on these inputs: (usable windows, windows with 1 to
+    max_candidates candidates, candidate entries examined, strands whose q
+    lies in the entry's span), the examination stopping at the first
+    match, forward before reverse, as the kernel's loop does."""
+    minval, iL, iR, flo, fhi, rlo, rhi, usable = prep
+    NB = tabs.bucket_offs.shape[0]
+    brow = u32(tabs.bucket_offs[u32(minval) & (NB - 1)])
+    start, cnt = brow[..., 0], brow[..., 1]
+    live = usable & (cnt > 0) & (cnt <= max_candidates)
+    n_cand = int(live.sum())
+    entries = strands = 0
+    done = torch.zeros_like(usable)
+    packs = ((u32(flo), u32(fhi)), (u32(rlo), u32(rhi)))
+    for e in range(max_candidates):
+        act = live & (e < cnt) & ~done
+        entries += int(act.sum())
+        ent = u32(tabs.entries[torch.where(act, start + e, 0)])
+        wlo, ms = ent[..., 0], ent[..., 2]
+        mpos = wlo + (ms & 0xFF)
+        for q, (wl, wh) in zip((mpos - iL.long(), mpos - (K - M) + iR.long()),
+                               packs):
+            inb = act & ~done & (q >= wlo) & (q < wlo + (ms >> 8))
+            strands += int(inb.sum())
+            tlo, thi = _text_kmer(tabs.text16, torch.where(inb, q, 0), K)
+            done |= inb & (tlo == wl) & (thi == wh)
+    return int(usable.sum()), n_cand, entries, strands
+
+
+def phase_v1(idx, eng, codes, mirror, seed):
+    """Phase 12: the v1 minimizer dictionary of phase 3's unitigs, built on
+    the host and put on the card once; its lookup (K8 -> K1 -> K14) on
+    phase 4's batch at V1_CANDIDATES, on phase 7's mirror reads and on
+    V1_LONG_READS reads of V1_LONG_LEN bases cut from the unitig text (in
+    pieces of 1,024), the launch counts reset just before and checked just
+    after. Each result equals the plain version on the card bit for bit;
+    K14 alone equals its plain version on the same K1 fields; at 8
+    candidates K14 equals K2 at the redo budget on every window both decide
+    and the host mirror on every window it decides. -> K14's row."""
+    dev = eng.device
+    Wk = READ_LEN - K + 1
+    t0 = time.perf_counter()
+    total = int(idx.unitig_offs[-1])
+    ucodes = unpack2(idx.unitig_seq, total)
+    d = build_minidict(ucodes, idx.unitig_offs, idx.u2c_csid, K, M)
+    t1 = time.perf_counter()
+    tabs = d.to(dev)
+    torch.cuda.synchronize()
+    NE, NB = len(d.entries), len(d.bucket_offs)
+    log(f"[v1] dictionary of {idx.num_unitigs} unitigs ({total} bases) built "
+        f"in {t1 - t0:.1f} s, on the card in "
+        f"{time.perf_counter() - t1:.2f} s: NE {NE} "
+        f"({idx.num_kmers / NE:.2f} k-mers an entry), NB {NB}, "
+        f"{d.num_bytes()} bytes ({d.num_bytes() / idx.num_kmers:.3f} B a "
+        f"k-mer; entries {d.entries.nbytes}, buckets "
+        f"{d.bucket_offs.nbytes}, text {d.text16.nbytes})")
+    n = min(BATCH, len(codes))
+    batch = torch.from_numpy(np.ascontiguousarray(codes[:n])).to(dev)
+    mq = sorted(mirror)
+    mreads = torch.from_numpy(np.ascontiguousarray(codes[mq])).to(dev)
+    rng = np.random.default_rng(seed + 12)
+    starts = rng.integers(0, total - V1_LONG_LEN, size=V1_LONG_READS)
+    longr = torch.from_numpy(np.stack(
+        [ucodes[s:s + V1_LONG_LEN] for s in starts])).to(dev)
+
+    # the path: the wrapper on the three inputs, launches counted
+    kernels.reset_launches()
+    got = {c: tabs.lookup(batch, max_candidates=c) for c in V1_CANDIDATES}
+    got_m = tabs.lookup(mreads, max_candidates=8)
+    got_l = tabs.lookup(longr, max_candidates=8)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    calls = len(V1_CANDIDATES) + 2
+    need, forbid = PATH_KERNELS["v1"]
+    bad = ([k for k in need if launches[k] != calls]
+           + [k for k in forbid if launches[k]])
+    log(f"[v1] {calls} lookups: launches {launches}")
+    if bad:
+        raise RuntimeError(f"v1 path: launches of {bad} are not {calls} for "
+                           f"K8/K1/K14 and 0 for the others: {launches}")
+
+    kw = dict(k=K, m=M)
+    errs = []
+    for c in V1_CANDIDATES:
+        want = lookup_minidict_batch_plain(*tables_of(tabs), batch,
+                                           max_candidates=c, **kw)
+        torch.cuda.synchronize()
+        errs.append(max_abs_err(got[c], want))
+        hit, _cs, ovf = got[c]
+        log(f"[v1] max_candidates {c}: {int(hit.sum())} hits, "
+            f"{int(ovf.sum())} ovf windows of {hit.numel()} "
+            f"({int(ovf.any(dim=1).sum())} reads), max_abs_err against "
+            f"the plain version {errs[-1]}")
+    want_l = lookup_minidict_batch_plain(*tables_of(tabs), longr,
+                                         max_candidates=8, **kw)
+    torch.cuda.synchronize()
+    errs.append(max_abs_err(got_l, want_l))
+    log(f"[v1] {V1_LONG_READS} reads of {V1_LONG_LEN} bases in pieces of "
+        f"1,024: {int(got_l[0].sum())} hits of {got_l[0].numel()} windows, "
+        f"{int(got_l[2].sum())} ovf; max_abs_err against the unsplit plain "
+        f"version {errs[-1]}")
+
+    # K14 alone, on K1's fields of the packed batch (phase 4's shape)
+    chunk = np.full((BATCH, WIDTH), 4, dtype=np.uint8)
+    chunk[:n, :READ_LEN] = codes[:n]
+    c2, bd = (torch.from_numpy(a).to(dev) for a in pack_reads_host(chunk))
+    prep_all = window_prep(c2, bd, width=WIDTH, k=K, m=M)
+    prep = tuple(prep_all[PREP_FIELDS.index(f)].contiguous()
+                 for f in V1_FIELDS)
+    mc = V1_CANDIDATES[0]
+    k14 = minidict_v1_verify(*tables_of(tabs), prep, max_candidates=mc, **kw)
+    want = minidict_v1_verify_plain(*tables_of(tabs), prep, max_candidates=mc,
+                                    **kw)
+    torch.cuda.synchronize()
+    errs.append(max_abs_err(k14, want))
+    same = all(torch.equal(a[:n, :Wk], b) for a, b in zip(k14, got[mc]))
+    log(f"[v1] K14 alone on K1's fields at W={WIDTH}: max_abs_err "
+        f"{errs[-1]}; its first {Wk} windows equal the wrapper's: {same}")
+    if not same:
+        raise RuntimeError("K14 on the packed batch differs from the wrapper")
+
+    # against K2 at the redo budget, and the host mirror
+    slots, text32, skew = eng.table
+    m2, num_slots = eng.dparams
+    vb, sc = eng._pb_redo
+    hit2, csid2, ovf2 = (t[:n, :Wk] for t in minidict2_probe(
+        slots, text32, skew, tuple(t.contiguous() for t in prep_all), k=K,
+        m=m2, num_slots=num_slots, vb=vb, sc=sc))
+    hit, csid, ovf = got[8]
+    both = ~ovf & ~ovf2
+    differ = int(((hit != hit2) | (csid != csid2))[both].sum())
+    log(f"[v1] against minidict2_probe at ({vb}, {sc}) on the "
+        f"{int(both.sum())} windows both decide: {differ} differ")
+    if differ:
+        raise RuntimeError("the v1 lookup differs from minidict2_probe")
+    hit, csid, ovf = (t.cpu().numpy() for t in got_m)
+    nbad = decided = 0
+    for i, q in enumerate(mq):
+        hit_w, cs_w = mirror[q]
+        ok = ~ovf[i]
+        decided += int(ok.sum())
+        cs_w = np.where(hit_w, cs_w, np.uint32(INVALID_U32))
+        nbad += int(((hit[i] != hit_w) | (csid[i].view(np.uint32) != cs_w))[
+            ok].any())
+    log(f"[v1] {len(mq)} mirror reads: {decided} windows decided, "
+        f"{int(ovf.sum())} ovf; {nbad} reads differ from the host mirror")
+    if nbad:
+        raise RuntimeError("the v1 lookup differs from the host mirror")
+
+    # time and bound
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    ms, warm = kernel_times(lambda: minidict_v1_verify(
+        *tables_of(tabs), prep, max_candidates=mc, **kw),
+        "minidict_v1_verify", flush)
+    del flush
+    chain = time_ms(lambda: tabs.lookup(batch, max_candidates=mc), REPS_PLAIN)
+    plain = time_ms(lambda: lookup_minidict_batch_plain(
+        *tables_of(tabs), batch, max_candidates=mc, **kw), REPS_PLAIN)
+    lanes = prep[0].numel()
+    n_us, n_cand, n_ent, n_str = v1_work(tabs, prep, mc)
+    nbytes = (lanes + n_us * (4 + 8) + n_cand * 24 + n_ent * 12 + n_str * 12
+              + lanes * 6)
+    sectors = (lanes + n_us * (4 + 32) + n_cand * 24 + n_ent * 32
+               + n_str * 32 + lanes * 6)
+    log(f"[v1] K14 at max_candidates {mc} over {lanes} windows: {n_us} "
+        f"usable (1 B usable each; 4 B minval + 8 B bucket row a usable "
+        f"one), {n_cand} with 1-{mc} candidates (24 B of K1's fields), "
+        f"{n_ent} entries examined (12 B), {n_str} strands in range (12 B "
+        f"text row), 6 B written a window: {nbytes / 1e6:.1f} MB, bound "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; counted as 32-byte "
+        f"sectors {sectors / 1e6:.1f} MB, "
+        f"{sectors / HBM_BYTES_PER_S * 1e3:.4f} ms; the wrapper (K8, K1, "
+        f"K14 and the piece copies) {chain:.4f} ms on the stream; phase 12 "
+        f"{time.perf_counter() - t0:.1f} s")
+    row = dict(
+        name="minidict_v1_verify", source="fulgor_tpu_torch/csrc/minidict.cu",
+        replaces="fulgor_tpu/ops/minidict.py:325", max_abs_err=max(errs),
+        ms=ms, warm_ms=warm, plain_ms=plain, bytes=nbytes,
+        # a candidate's bounds, shifts and compares; a window's bucket
+        ops=n_ent * 40 + lanes * 10, launches=launches)
+    finish_row(row, "v1")
+    return row
+
+
+def tables_of(tabs):
+    return tabs.entries, tabs.bucket_offs, tabs.text16
+
+
+def visible_cards():
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def per_card_launches(fn, names):
+    """fn() under torch.profiler. -> (fn's result, {card index: {kernel:
+    launches}}) for the launch counts `names`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for name in names:
+            if kernel_pattern(name).search(e.name):
+                card = per.setdefault(e.device_index, dict.fromkeys(names, 0))
+                card[name] += 1
+    return out, per
+
+
+def phase_cards(idx, eng, reads, tmp, fi, tu, km):
+    """Phase 13, where more than one card is visible: phase 11's GRID over
+    distinct cards (the first four, or make_mesh()'s default over all
+    where fewer), FI, TU(TAU) and kmer-matches each once to a file equal to
+    the one-card file, every card of the grid launching K1, K2, K6 and K3
+    in a profiled FI pass, FI timed in turns with the one-card engine; then
+    QueryEngine(idx) with no device named, the default mesh over every
+    card, FI and TU(TAU) to files equal to the one-card ones. -> the card
+    count and the FI medians, or None on one card."""
+    cards = visible_cards()
+    n = len(cards)
+    if n < 2:
+        log(f"[cards] not run: {n} card visible (the mesh over distinct "
+            "cards needs two or more)")
+        return None
+    grid = (make_mesh(cards[:4], *GRID) if n >= 4 else make_mesh(cards))
+    meng = QueryEngine(idx, mesh=grid)
+    names = [torch.cuda.get_device_name(i) for i in range(n)]
+    log(f"[cards] {n} cards visible: {names}; grid {grid.shape} over "
+        f"{[str(d) for d in grid.devices]}")
+    refs = (("fi", "pseudoalign_file", {}, fi["out"]),
+            ("tu", "pseudoalign_file", {"threshold": TAU}, tu["ascii"]),
+            ("km", "kmer_matches_file", {}, km["out"]))
+    for tool, method, kw, ref in refs:
+        path = os.path.join(tmp, f"cards.{tool}")
+        st = getattr(meng, method)(reads, path, **kw)
+        num_reads = st["num_reads"]
+        same = (same_bytes(path, ref) if tool == "km"
+                else same_records(path, ref))
+        log(f"[cards] {tool} on {grid.size} cards: {st['num_reads']} reads "
+            f"in {st['elapsed']:.3f} s, {st['num_redo']} redone; the same "
+            f"{'bytes' if tool == 'km' else 'records'} as the one-card "
+            f"file: {same}")
+        if not same:
+            raise RuntimeError(f"{tool} over distinct cards differs from the "
+                               "one-card file")
+        os.remove(path)
+    names = ("window_prep", "minidict2_probe", "compact_runs", "fi_and")
+    _, per = per_card_launches(
+        lambda: meng.pseudoalign_file(reads, os.devnull), names)
+    log(f"[cards] profiled FI pass: launches a card {per}")
+    missing = [(str(d), k) for d in grid.devices for k in names
+               if per.get(d.index, {}).get(k, 0) == 0]
+    if missing:
+        raise RuntimeError(f"cards of the grid launched no {missing}")
+    rates, base = [], []
+    for _ in range(MESH_PASSES):
+        st = eng.pseudoalign_file(reads, os.devnull)
+        base.append(st["num_reads"] / st["elapsed"])
+        st = meng.pseudoalign_file(reads, os.devnull)
+        rates.append(st["num_reads"] / st["elapsed"])
+    rate, one = statistics.median(rates), statistics.median(base)
+    log(f"[cards] FI on {grid.size} cards {grid.shape}: median {rate:.1f} "
+        f"reads/s ({min(rates):.1f}-{max(rates):.1f}) against one card's "
+        f"{one:.1f} ({min(base):.1f}-{max(base):.1f}) in turns: "
+        f"{rate / one:.3f} x")
+    del meng
+    deng = QueryEngine(idx)
+    if deng.mesh is None or deng.mesh.size != n:
+        raise RuntimeError(f"QueryEngine(idx) on {n} cards took mesh "
+                           f"{deng.mesh and deng.mesh.shape}")
+    for tool, method, kw, ref in refs[:2]:
+        path = os.path.join(tmp, f"default.{tool}")
+        st = getattr(deng, method)(reads, path, **kw)
+        same = same_records(path, ref)
+        log(f"[cards] default mesh {deng.mesh.shape} over {n} cards: {tool} "
+            f"{st['num_reads']} reads in {st['elapsed']:.3f} s; the same "
+            f"records as the one-card file: {same}")
+        if not same:
+            raise RuntimeError(f"the default mesh's {tool} differs from the "
+                               "one-card file")
+        os.remove(path)
+    return dict(cards=n, rate=rate, one=one, reads=num_reads)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--genomes", type=int, default=512)
     ap.add_argument("--reads", type=int, default=250_000)
     ap.add_argument("--seed", type=int, default=27)
+    ap.add_argument("--cards-only", action="store_true",
+                    help="phases 1-3, FI, TU and kmer-matches on the first "
+                    "card, then phase 13 only (a machine with several cards)")
     args = ap.parse_args()
     t_start = time.perf_counter()
     card = phase_device()
@@ -2159,10 +2492,26 @@ def main():
     try:
         idx, codes, names, reads = phase_index(tmp, args.genomes, args.reads,
                                                args.seed)
-        eng = QueryEngine(idx)
+        # the one-card engine: with no device named, several cards would
+        # give the default mesh (phase 13 runs that)
+        eng = QueryEngine(idx, device=torch.device("cuda", 0))
+        if args.cards_only:
+            fi = phase_fi(eng, reads, tmp)
+            tu = phase_tu(eng, reads, tmp)
+            km = phase_km(eng, reads, tmp)
+            cards = phase_cards(idx, eng, reads, tmp, fi, tu, km)
+            if cards is None:
+                raise RuntimeError("--cards-only needs two or more cards")
+            log(f"[done] {time.perf_counter() - t_start:.1f} s in all; "
+                f"{cards['cards']} cards: FI {cards['rate']:.1f} reads/s "
+                f"against one card's {cards['one']:.1f}")
+            print(json.dumps({"ok": True, "device": {
+                "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                "count": torch.cuda.device_count()}}), flush=True)
+            return
         log(f"[index] covered fraction {eng._covered_frac:.4f} -> probe "
             f"budget {eng._pb}, redo budget {eng._pb_redo}")
-        ceng = QueryEngine(phase_cuckoo_index(idx, tmp))
+        ceng = QueryEngine(phase_cuckoo_index(idx, tmp), device=eng.device)
         rows = phase_kernels(idx, eng, ceng, codes)
         fi = phase_fi(eng, reads, tmp)
         tu = phase_tu(eng, reads, tmp)
@@ -2182,6 +2531,9 @@ def main():
         rows += phase_mesh_kernels(eng, wide["index"], codes)
         mesh = phase_mesh(eng, ceng.idx, wide["index"], reads, codes, tmp,
                           fi, tu, km, kc, dedup, array, wide["out"])
+        v1 = phase_v1(idx, eng, codes, mirror, args.seed)
+        rows.append(v1)
+        cards = phase_cards(idx, eng, reads, tmp, fi, tu, km)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all; end to end "
@@ -2197,7 +2549,10 @@ def main():
         f"{ {k: round(v[1], 1) for k, v in probes.items()} } reads/s "
         f"(medians); on a {GRID} grid of this card FI "
         f"{mesh['rates']['fi']:.1f}, TU({TAU}) {mesh['rates']['tu']:.1f} "
-        f"reads/s (medians)")
+        f"reads/s (medians)"
+        + (f"; over {cards['cards']} cards FI {cards['rate']:.1f} reads/s "
+           f"against one card's {cards['one']:.1f} in turns" if cards
+           else ""))
     # each kernel's launches on its own path's last timed run
     path_of = {"tu_mask": tu, "km_scores": km, "compact_runs": kc,
                "cuckoo_lookup": cuckoo, "pack_codes": array,
@@ -2205,7 +2560,8 @@ def main():
                "staged_probe": {"launches": probes["staged_fi"][0]},
                "anchored_probe": {"launches": probes["anchored_fi"][0]},
                "runs_scores": {"launches": mesh["tu_launches"]},
-               "pack_hits": {"launches": mesh["km_launches"]}}
+               "pack_hits": {"launches": mesh["km_launches"]},
+               "minidict_v1_verify": v1}
     out = []
     for r in rows:
         out.append(dict(

@@ -139,11 +139,8 @@ def main(argv=None):
                        help="torch device (default: cuda; 'cpu' runs the "
                             "plain PyTorch versions of the kernels). With "
                             "several cards visible and no device named, "
-                            "queries shard over a mesh of them all, which "
-                            "has run on one card only (the copies and "
-                            "stream waits between cards are unchecked): "
-                            "name a card, e.g. cuda:0, for the checked "
-                            "one-device path")
+                            "queries shard over a mesh of them all; name a "
+                            "card, e.g. cuda:0, for one device")
         q.add_argument("--verbose", action="store_true")
 
     q = sub.add_parser("pseudoalign", help="pseudoalign reads")

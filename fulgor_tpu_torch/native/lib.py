@@ -207,6 +207,8 @@ def _load():
         lib.fn_pack_patterns.restype = None
         lib.fn_touch.argtypes = [ct.c_char_p, ct.c_int64]
         lib.fn_touch.restype = None
+        lib.fn_omp_threads.argtypes = [ct.c_int]
+        lib.fn_omp_threads.restype = ct.c_int
         lib.fn_hash_partials.argtypes = [
             ct.POINTER(ct.c_uint32), ct.POINTER(ct.c_int64),
             ct.c_int64, ct.c_int64,
@@ -481,6 +483,14 @@ def sort_i64(arr: np.ndarray) -> np.ndarray:
     if len(arr):
         lib.fn_sort_i64(arr.ctypes.data_as(ct.POINTER(ct.c_int64)), len(arr))
     return arr
+
+
+def omp_threads(n: int = 0) -> int:
+    """Set the OpenMP thread count of this library's later parallel regions
+    on the calling thread (n >= 1; n = 0 only reads it). -> the count in
+    force before the call. FULGOR_THREADS sizes its std::thread pools and
+    its explicitly sized regions."""
+    return int(_load().fn_omp_threads(int(n)))
 
 
 _warmed_bytes = 0

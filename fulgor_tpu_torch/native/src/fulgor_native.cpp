@@ -35,6 +35,7 @@
 #include <zlib.h>
 
 #ifdef _OPENMP
+#include <omp.h>
 #include <parallel/algorithm>
 #define PAR_SORT __gnu_parallel::sort
 #else
@@ -42,6 +43,22 @@
 #endif
 
 extern "C" void fn_free(void* p) { free(p); }
+
+// OpenMP threads of the calling thread's later parallel regions: n >= 1
+// sets the count, n <= 0 leaves it. -> the count in force before the call
+// (1 without OpenMP). A process may hold another OpenMP runtime beside this
+// library's (torch bundles its own), so a caller that wants one thread
+// everywhere sets both.
+extern "C" int fn_omp_threads(int n) {
+#ifdef _OPENMP
+    const int prev = omp_get_max_threads();
+    if (n >= 1) omp_set_num_threads(n);
+    return prev;
+#else
+    (void)n;
+    return 1;
+#endif
+}
 
 // host thread budget: FULGOR_THREADS (the CLI's -t flag, reference
 // build_configuration.num_threads) caps every std::thread pool here; the

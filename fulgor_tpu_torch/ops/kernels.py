@@ -13,8 +13,9 @@ K8 pack_codes), ops/probe.py (K2 minidict2_probe), ops/intersect.py (K3
 fi_and, K4 tu_mask, K5 km_scores, K6 compact_runs, K9 first_set_bits, K12
 runs_scores: runs_mask and runs_scores, K13 pack_hits), ops/lookup.py (K7
 cuckoo_lookup), ops/staged.py (K10 staged_probe: its four kernels, not the
-K2 launches between them) and ops/anchored.py (K11 anchored_probe: its
-three kernels): one per launch, nowhere else.
+K2 launches between them), ops/anchored.py (K11 anchored_probe: its
+three kernels) and ops/minidict.py (K14 minidict_v1_verify, not the K8
+and K1 launches before it): one per launch, nowhere else.
 """
 
 from __future__ import annotations
@@ -32,14 +33,14 @@ BUILD = os.path.join(_PKG, "_build")
 LIB = os.path.join(BUILD, "libfulgor_kernels.so")
 SOURCES = ("prep.cu", "probe.cu", "intersect.cu", "union.cu", "runs.cu",
            "cuckoo.cu", "pack.cu", "lists.cu", "staged.cu", "anchored.cu",
-           "hits.cu")
+           "hits.cu", "minidict.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 launches = {"window_prep": 0, "minidict2_probe": 0, "fi_and": 0,
             "tu_mask": 0, "km_scores": 0, "compact_runs": 0,
             "cuckoo_lookup": 0, "pack_codes": 0, "first_set_bits": 0,
             "staged_probe": 0, "anchored_probe": 0, "runs_scores": 0,
-            "pack_hits": 0}
+            "pack_hits": 0, "minidict_v1_verify": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -132,6 +133,9 @@ def library():
         lib.fulgor_runs_scores.argtypes = [P, I, I, P, P, I, I, I, P, P, I, P,
                                            P]
         lib.fulgor_pack_hits.argtypes = [P, P, I, I, P, P, P]
+        L = ct.c_int64
+        lib.fulgor_minidict_v1_verify.argtypes = (
+            [P, L, P, L, P, L] + [P] * 8 + [L, I, I, I] + [P] * 3 + [P])
         for fn in (lib.fulgor_window_prep, lib.fulgor_minidict2_probe,
                    lib.fulgor_fi_and, lib.fulgor_tu_mask,
                    lib.fulgor_km_scores, lib.fulgor_compact_runs,
@@ -139,7 +143,8 @@ def library():
                    lib.fulgor_first_set_bits, lib.fulgor_staged_split,
                    lib.fulgor_staged_merge, lib.fulgor_anchored_anchors,
                    lib.fulgor_anchored_extend, lib.fulgor_anchored_merge,
-                   lib.fulgor_runs_scores, lib.fulgor_pack_hits):
+                   lib.fulgor_runs_scores, lib.fulgor_pack_hits,
+                   lib.fulgor_minidict_v1_verify):
             fn.restype = I
         _lib = lib
         return lib

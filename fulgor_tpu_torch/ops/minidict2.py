@@ -325,10 +325,13 @@ def extract33_host(text32: np.ndarray, q) -> tuple[np.ndarray, np.ndarray]:
     return lo.astype(np.uint32), hi.astype(np.uint32)
 
 
-def _minimizer_runs(unitig_codes, unitig_offs, unitig_cs, k, m):
+def _minimizer_runs(unitig_codes, unitig_offs, unitig_cs, k, m,
+                    max_span=MAX_SPAN):
     """Maximal runs of k-mer positions with constant leftmost-minimizer
-    position (split at 255). -> dict of per-entry arrays + per-position
-    hash array (the construction of fulgor_tpu's v1 minidict build)."""
+    position, split into entries of at most max_span positions (MAX_SPAN
+    for minidict2, 255 for the v1 dictionary). -> dict of per-entry arrays
+    + per-position hash array (the construction of fulgor_tpu's v1
+    minidict build)."""
     codes = np.asarray(unitig_codes, dtype=np.uint8)
     offs = np.asarray(unitig_offs, dtype=np.int64)
     ucs = np.asarray(unitig_cs, dtype=np.uint32)
@@ -357,14 +360,14 @@ def _minimizer_runs(unitig_codes, unitig_offs, unitig_cs, k, m):
     run_id = np.cumsum(is_new) - 1
     counts = np.bincount(run_id[valid_k], minlength=len(starts))
 
-    # split runs at MAX_SPAN (vectorized)
-    n_sub = (counts + MAX_SPAN - 1) // MAX_SPAN
+    # split runs at max_span (vectorized)
+    n_sub = (counts + max_span - 1) // max_span
     sub_of_run = np.repeat(np.arange(len(starts)), n_sub)
     sub_idx = np.arange(int(n_sub.sum())) - np.repeat(
         np.concatenate([[0], np.cumsum(n_sub)])[:-1], n_sub
     )
-    wlo = starts[sub_of_run] + MAX_SPAN * sub_idx
-    span = np.minimum(counts[sub_of_run] - MAX_SPAN * sub_idx, MAX_SPAN)
+    wlo = starts[sub_of_run] + max_span * sub_idx
+    span = np.minimum(counts[sub_of_run] - max_span * sub_idx, max_span)
     jj = j[starts][sub_of_run]
     moff = jj - wlo
     assert len(wlo) == 0 or ((moff >= 0).all() and (moff <= 255).all())

@@ -321,11 +321,9 @@ class QueryEngine:
     over a mesh of devices.
 
     use_mesh: None = a mesh over every card when more than one is visible
-    and no device is named; True = make_mesh(); False = one device. The
-    mesh has run on one card only (a grid of cells repeating it): the
-    copies and stream waits between distinct cards are unchecked, so name
-    a device or pass use_mesh=False for the checked one-device path on a
-    machine with several. mesh: a grid of one's own (parallel/mesh.py
+    and no device is named; True = make_mesh(); False = one device.
+    chip_smoke.py checks the mesh over four distinct cards and the default
+    one (phase 13). mesh: a grid of one's own (parallel/mesh.py
     make_mesh), taken as given: the hook by which the tests and
     chip_smoke.py lay a grid over repeated devices.
 

@@ -24,6 +24,7 @@ from fulgor_tpu.ops import minidict2 as J
 from fulgor_tpu_torch.ops import anchored as A
 from fulgor_tpu_torch.ops.probe import minidict2_probe
 from tests.test_torch_staged import W, _np, probe_inputs
+from tests.test_torch_threads import one_thread  # noqa: F401
 
 ANCHORED = [(None, None), (4, 2), (2, 1)]
 

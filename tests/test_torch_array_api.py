@@ -32,6 +32,7 @@ from fulgor_tpu_torch.ops.prep import pack_codes
 from fulgor_tpu_torch.query import engine as E
 from tests.test_ccdbg import random_genomes
 from tests.test_native import write_fasta
+from tests.test_torch_threads import one_thread  # noqa: F401
 
 K_LEN, M_LEN, L = 15, 9, 60
 LONG = 1100  # over the port's 1,024-base cap

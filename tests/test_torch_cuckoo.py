@@ -31,6 +31,7 @@ from fulgor_tpu_torch.ops.lookup import (
 from fulgor_tpu_torch.query import host_lookup as TH
 from tests.test_ccdbg import random_genomes
 from tests.test_native import write_fasta
+from tests.test_torch_threads import one_thread  # noqa: F401
 
 W = 96
 KS = [15, 31]

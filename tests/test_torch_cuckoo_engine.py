@@ -31,6 +31,7 @@ from fulgor_tpu_torch.query import engine as E
 from tests.test_ccdbg import random_genomes
 from tests.test_native import write_fasta
 from tests.test_torch_engine import _records
+from tests.test_torch_threads import one_thread  # noqa: F401
 
 K_LEN, M_LEN = 15, 9
 TOOLS = {"fi": ["pseudoalign"], "tu": ["pseudoalign", "-r", "0.8"],

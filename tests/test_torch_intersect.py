@@ -11,6 +11,8 @@ import torch
 from fulgor_tpu.ops import intersect as J
 from fulgor_tpu_torch.ops.intersect import fi_and
 
+from tests.test_torch_threads import one_thread  # noqa: F401
+
 S, C32, B, WK = 300, 3, 48, 50
 RUN_BUDGET = 12
 

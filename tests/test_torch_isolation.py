@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_threads import one_thread  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "fulgor_tpu_torch")
 # jax, or fulgor_tpu not followed by _torch

@@ -29,6 +29,7 @@ from fulgor_tpu_torch.core.colorstores import HybridStore as THybridStore
 from fulgor_tpu_torch.index import Index as TIndex
 from fulgor_tpu_torch.query import engine as E
 from tests.test_torch_engine import _records, corpus  # noqa: F401
+from tests.test_torch_threads import one_thread  # noqa: F401
 
 WIDE_C = 4546  # the reference's Salmonella index: C32 = 143
 NUM_READS = 120

@@ -31,6 +31,7 @@ from tests.test_torch_large_c import (  # noqa: F401
     NUM_READS, engines, run_both, wide,
 )
 from tests.test_torch_union_engine import _step_inputs
+from tests.test_torch_threads import one_thread  # noqa: F401
 
 
 def edge_rows(C32: int, T: int, seed: int) -> np.ndarray:

@@ -49,19 +49,12 @@ from fulgor_tpu_torch.parallel import mesh as M
 from fulgor_tpu_torch.query.engine import QueryEngine
 from tests.test_ccdbg import random_genomes
 from tests.test_native import write_fasta
+from tests.test_torch_threads import one_thread  # noqa: F401
 
 K_LEN, M_LEN, READ_LEN, WIDTH, BATCH = 13, 9, 48, 64, 256
 WK = WIDTH - K_LEN + 1
 LAYOUTS = [(4, 2), (2, 4), (1, 1)]
 TAU = 0.8
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    keep = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(keep)
 
 
 @pytest.fixture(scope="module")

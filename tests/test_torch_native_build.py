@@ -23,6 +23,8 @@ import os
 import subprocess
 import tempfile
 
+from tests.test_torch_threads import one_thread  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF_NATIVE = os.path.join(ROOT, "fulgor_tpu", "native")
 REF_SO = os.path.join(REF_NATIVE, "libfulgor_native.so")

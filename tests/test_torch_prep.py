@@ -11,6 +11,8 @@ from fulgor_tpu.ops import minidict2 as J
 from fulgor_tpu_torch.ops.hostpack import pack_reads_host
 from fulgor_tpu_torch.ops.prep import PREP_FIELDS, window_prep
 
+from tests.test_torch_threads import one_thread  # noqa: F401
+
 
 def _batch(rng, B, W, k):
     """Random reads of ragged length (padding), with scattered N bases."""

@@ -16,6 +16,7 @@ from fulgor_tpu_torch.ops.prep import window_prep
 from fulgor_tpu_torch.ops.probe import minidict2_probe
 from tests.test_ccdbg import random_genomes
 from tests.test_native import write_fasta
+from tests.test_torch_threads import one_thread  # noqa: F401
 
 W = 64
 BUDGETS = [(2, 2), (4, 4), (3, 3), (8, 4), None, (1, 1)]

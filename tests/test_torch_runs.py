@@ -16,6 +16,8 @@ import torch
 from fulgor_tpu.ops import intersect as J
 from fulgor_tpu_torch.ops.intersect import compact_runs
 
+from tests.test_torch_threads import one_thread  # noqa: F401
+
 B = 64
 INV = np.uint32(0xFFFFFFFF)
 CASES = [(wk, r) for wk in (1, 31, 32, 33, 130)

@@ -27,6 +27,7 @@ from fulgor_tpu_torch.ops import pipeline as TP
 from fulgor_tpu_torch.query import engine as E
 from tests.test_torch_engine import _records, corpus  # noqa: F401
 from tests.test_torch_union_engine import _step_inputs
+from tests.test_torch_threads import one_thread  # noqa: F401
 
 SHORT = "ACGTACGTAC"  # shorter than k = 15
 DEDUP_FORMATS = ["ascii", "binary"]

@@ -41,6 +41,7 @@ from fulgor_tpu_torch.query import engine as E
 from tests.test_ccdbg import random_genomes
 from tests.test_native import write_fasta
 from tests.test_torch_engine import _records, corpus  # noqa: F401
+from tests.test_torch_threads import one_thread  # noqa: F401
 
 W = 64
 STAGED = [(2, 8, 4, 16), (2, 8, 4, 2), (1, 8, 4, 1)]
@@ -142,19 +143,6 @@ def test_staged_matches_jax(case, budget):
     np.testing.assert_array_equal(cs[ok], cs1[ok])
     if ru <= 2:  # heavy reads past the B2 sub-batch (B // 8 = 6 rows)
         assert ovf.any()
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread for this module's tests, restored after. Its
-    plain-version engine runs do many small tensor ops, which eight threads
-    run no faster (the same wall, half again the CPU time); under the
-    parallel test run the spare threads' CPU is taken from the other
-    workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -19,6 +19,8 @@ from fulgor_tpu.ops import intersect as J
 from fulgor_tpu.ops import pipeline as JP
 from fulgor_tpu_torch.ops.intersect import km_scores, tu_mask
 
+from tests.test_torch_threads import one_thread  # noqa: F401
+
 S, C, B, WK = 300, 70, 48, 130
 C32 = (C + 31) // 32
 RUN_BUDGET = 40

@@ -31,6 +31,7 @@ from fulgor_tpu_torch.ops import pipeline as TP
 from fulgor_tpu_torch.ops.hostpack import pack_reads_host
 from fulgor_tpu_torch.query import engine as E
 from tests.test_torch_engine import FORMATS, _records, corpus  # noqa: F401
+from tests.test_torch_threads import one_thread  # noqa: F401
 
 TU_CASES = [(0.8, f) for f in FORMATS] + [(0.5, "ascii"), (1.0, "ascii")]
 LEN_FAULT = 1030
