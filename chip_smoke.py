@@ -2,6 +2,7 @@
 """Drive fulgor_tpu_torch's main path on one NVIDIA card and check it.
 
     python3 chip_smoke.py [--genomes 512] [--reads 250000] [--seed 27]
+                          [--parent DIR]
 
 Phases, each printing its own lines; any failure exits non-zero before the
 last line, which is printed only when every phase passed:
@@ -9,7 +10,10 @@ last line, which is printed only when every phase passed:
   1. device   a CUDA card is required; its name and power limit as
               nvidia-smi reports them.
   2. build    the CUDA kernels (csrc/*.cu, one nvcc per source in
-              parallel) and the native host library, from this checkout.
+              parallel; each kernel's registers, static shared memory and
+              spills from nvcc -Xptxas -v) and the native host library,
+              from this checkout; with --parent DIR also DIR's kernels
+              (another commit, unpacked with git archive).
   3. index    a pansal4546-calibrated pangenome (fulgor_tpu's bench.py
               simulator settings) cut to --genomes genomes, built at k=31,
               m=19 into a temporary directory removed at exit; 150 bp reads
@@ -97,6 +101,21 @@ last line, which is printed only when every phase passed:
               each a warm-up, three timed passes (the staged ones in turns
               with one-pass passes of the same tool) and a profiled pass to
               a file, which must hold phase 5's FI or phase 6's TU records.
+ 10b. k2k3   K2 and K3 as redesigned for the card, bit for bit against
+              their plain versions: K2 in its three modes at the engine's
+              two budgets and at (0, 2) and (20, 4) (no verify; more than a
+              slot row's 16 candidates), on phase 4's batch and on an odd
+              count of lanes drawn from it; K3 on the batch at C32 = 16 and
+              against the wide index's rows (C32 = 143), on a (2, 2) grid
+              shard's runs (C32 = 8), and on seeded edge batches (C32 1, 8,
+              17, 143; Wk 1, 33, 130, 1,024; holes in hit, unmapped reads).
+              Then K2 at the engine's two budgets, in stage1 mode (K10's
+              vb1) and want_entry mode (K11's budget), and K3 at C32 = 16,
+              143 and the shard width, each timed cold L2 and warm with its
+              byte bound (K2's counting the text rows of the first
+              min(vb, cnt) candidates a lane, the count without them
+              beside it); with --parent in turns with DIR's kernels
+              (parent, this, this, parent).
  11. mesh     the mesh query path (parallel/mesh.py) on the one card. (a)
               On phase 4's batch, bit for bit: K12 runs_scores over K6's
               runs at R = Wk, mask (tau 0.8) and u16 modes, on every colour
@@ -156,6 +175,8 @@ last is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import ctypes as ct
 import dataclasses
 import json
 import multiprocessing
@@ -201,7 +222,8 @@ from fulgor_tpu_torch.ops.minidict import (
     minidict_v1_verify, minidict_v1_verify_plain,
 )
 from fulgor_tpu_torch.ops.minidict2 import (
-    anchor_budget, lookup_host_exact, reprobe_budget,
+    SKEW_CAND, VERIFY_BUDGET, anchor_budget, lookup_host_exact,
+    reprobe_budget,
 )
 from fulgor_tpu_torch.ops.prep import (
     PREP_FIELDS, pack_codes, pack_codes_plain, window_prep, window_prep_plain,
@@ -210,7 +232,9 @@ from fulgor_tpu_torch.ops.pipeline import (
     query_conservation_packed, query_runs_tu_packed, query_window_csids_packed,
 )
 from fulgor_tpu_torch.parallel.mesh import make_mesh, pad_bits_for_mesh
-from fulgor_tpu_torch.ops.probe import minidict2_probe, minidict2_probe_plain
+from fulgor_tpu_torch.ops.probe import (
+    minidict2_probe, minidict2_probe_plain, prep_of_lanes, probe_lanes,
+)
 from fulgor_tpu_torch.ops.staged import (
     minidict2_staged_probe, minidict2_staged_probe_plain,
 )
@@ -231,7 +255,14 @@ READ_LEN, WIDTH, BATCH = 150, 160, 32768
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12
 REPS_KERNEL, REPS_PLAIN = 20, 3
-PROFILE_ATTEMPTS = 5
+# recordings a kernel's timing may take, and the idle time each leaves on
+# the card before its first timed launch and after its last: late in a
+# run the profiler often drops the first launches of a recording (42
+# recordings discarded in one whole run; once eight in a row, with no
+# idle time). The idle time doubles with each recording discarded; where
+# none of them holds every launch, CUDA events time the calls instead.
+PROFILE_ATTEMPTS = 8
+PROFILE_GUARD_S, PROFILE_GUARD_MAX_S = 0.02, 0.32
 # FI's timed passes were cut from five to three to make room for phase 9
 E2E_PASSES, TU_PASSES, KM_PASSES, KC_PASSES, DEDUP_PASSES = 3, 3, 3, 3, 3
 TAU = 0.8
@@ -366,10 +397,54 @@ PROBE_PASSES = 3
 # and its long reads cut from the unitig text
 V1_CANDIDATES = (4, 8)
 V1_LONG_READS, V1_LONG_LEN = 64, 3000
+# phase 10b: K2's edge budgets (no verify; more than the 16 candidates of
+# a slot row) beside the engine's two, on the batch and on an odd count of
+# lanes drawn from it; K3's seeded edge batches (C32, Wk) of EDGE_READS
+# reads with holes in hit, unmapped reads and runs broken by misses
+K2_EDGE_BUDGETS = ((0, 2), (20, 4))
+K3_EDGE = ((1, 1), (1, 1024), (143, 1), (143, 1024), (8, 33), (17, 130))
+EDGE_READS = 777
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def recording(body, attempt):
+    """body() under torch.profiler's CUDA tracing, the card left idle for
+    PROFILE_GUARD_S * 2 ** (attempt - 1) seconds, at most
+    PROFILE_GUARD_MAX_S, before body's first launch and after its last,
+    and a small memset first, so that no timed launch is the recording's
+    first record. -> the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    guard = min(PROFILE_GUARD_S * 2 ** (attempt - 1), PROFILE_GUARD_MAX_S)
+    lead = torch.zeros(64, device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        lead.zero_()
+        torch.cuda.synchronize()
+        time.sleep(guard)
+        body()
+        torch.cuda.synchronize()
+        time.sleep(guard)
+    return prof
+
+
+def event_ms(fn, reps, flush=None):
+    """Milliseconds of each of `reps` calls of fn on the stream, CUDA
+    events around it, launch gaps included; flush as in kernel_ms."""
+    ts = []
+    for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        ts.append(s.elapsed_time(e))
+    return ts
 
 
 def kernel_ms(fn, name, reps, flush=None):
@@ -378,22 +453,24 @@ def kernel_ms(fn, name, reps, flush=None):
     flush: a device buffer zeroed before each call, so that every launch
     starts with a cold L2. The wrapper's own count must show `reps`
     launches in each recording. The profiler now and then records fewer
-    kernel events than were launched (15 of 20 once, in a process's first
-    session on an H100): such a recording is discarded and the launches
-    timed again, up to PROFILE_ATTEMPTS recordings. Raises unless one
-    recording holds exactly `reps` launches."""
-    from torch.profiler import ProfilerActivity, profile
-
+    kernel events than were launched, most often the first of a recording
+    missing: such a recording is discarded and the launches timed again in
+    a new one (`recording`), up to PROFILE_ATTEMPTS recordings. Where no
+    recording holds exactly `reps` launches, the median of `reps` calls
+    timed with CUDA events (event_ms) is returned instead, and logged so.
+    Raises where fn launches the kernel other than once a call."""
     fn()
     torch.cuda.synchronize()
+
+    def body():
+        for _ in range(reps):
+            if flush is not None:
+                flush.zero_()
+            fn()
+
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         before = kernels.launches[name]
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                if flush is not None:
-                    flush.zero_()
-                fn()
-            torch.cuda.synchronize()
+        prof = recording(body, attempt)
         launched = kernels.launches[name] - before
         if launched != reps:
             raise RuntimeError(f"{reps} calls made {launched} {name} launches")
@@ -404,8 +481,15 @@ def kernel_ms(fn, name, reps, flush=None):
         log(f"[kernels] {name}: the profiler recorded {len(ts)} of {reps} "
             f"launches (recording {attempt} of {PROFILE_ATTEMPTS}), "
             "discarded")
-    raise RuntimeError(f"no recording of {PROFILE_ATTEMPTS} held all {reps} "
-                       f"{name} launches")
+    before = kernels.launches[name]
+    ts = event_ms(fn, reps, flush)
+    if kernels.launches[name] - before != reps:
+        raise RuntimeError(f"{reps} calls made "
+                           f"{kernels.launches[name] - before} {name} launches")
+    log(f"[kernels] {name}: no recording of {PROFILE_ATTEMPTS} held all "
+        f"{reps} launches; timed with CUDA events around each call instead "
+        "(launch gaps included)")
+    return statistics.median(ts)
 
 
 def time_ms(fn, reps):
@@ -477,18 +561,84 @@ def phase_device():
     return card
 
 
+def kernel_resources(log_text):
+    """(source, kernel, registers, static shared bytes, spill stores,
+    spill loads) of each kernel in an nvcc -Xptxas -v log, names
+    demangled where c++filt is found."""
+    rows, src, fn, spill = [], None, None, (0, 0)
+    for ln in log_text.splitlines():
+        if ln.startswith("== "):
+            src = ln[3:].strip()
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            fn, spill = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn:
+            sm = re.search(r"(\d+) bytes smem", ln)
+            rows.append([src, fn, int(m.group(1)),
+                         int(sm.group(1)) if sm else 0, *spill])
+            fn = None
+    filt = shutil.which("c++filt")
+    if filt and rows:
+        names = subprocess.run([filt], input="\n".join(r[1] for r in rows),
+                               capture_output=True, text=True).stdout
+        for r, name in zip(rows, names.splitlines()):
+            name = name.replace("(anonymous namespace)::", "")
+            r[1] = re.sub(r"^void |\(.*", "", name)
+    return [tuple(r) for r in rows]
+
+
+def log_resources(tag, log_text, sources=None):
+    for src, fn, regs, smem, st, ld in kernel_resources(log_text):
+        if sources is None or src in sources:
+            log(f"[{tag}]   {src} {fn}: {regs} registers, {smem} B static "
+                f"shared, spill {st} B stores / {ld} B loads")
+
+
 def phase_build():
     s = kernels.build_seconds()
-    regs = [ln.strip() for ln in open(os.path.join(kernels.BUILD, "build.log"))
-            if "registers" in ln or "spill" in ln]
     log(f"[build] CUDA kernels built in {s:.2f} s ({len(kernels.SOURCES)} "
-        "sources, one nvcc each, in parallel)")
-    for ln in regs:
-        log(f"[build]   {ln}")
+        "sources, one nvcc each, in parallel); nvcc -Xptxas -v:")
+    with open(os.path.join(kernels.BUILD, "build.log")) as f:
+        log_resources("build", f.read())
     t0 = time.perf_counter()
     native._load()
     log(f"[build] native host library ready in "
         f"{time.perf_counter() - t0:.2f} s")
+
+
+def parent_library(parent):
+    """The kernel library of another checkout of this repository (--parent:
+    an earlier commit unpacked with git archive), built from its csrc/
+    into its own _build/ and bound as this one: its K2 and K3 are timed in
+    turns with this tree's in phase 10b. The C entry points of both trees
+    must take the same arguments."""
+    pkg = os.path.join(os.path.abspath(parent), "fulgor_tpu_torch")
+    lib = os.path.join(pkg, "_build", "libfulgor_kernels.so")
+    t0 = time.perf_counter()
+    text = kernels.build(os.path.join(pkg, "csrc"), lib)
+    log(f"[build] the parent's kernels ({parent}) built in "
+        f"{time.perf_counter() - t0:.2f} s; its K2 and K3:")
+    log_resources("build", text, ("probe.cu", "intersect.cu"))
+    return kernels.bind(ct.CDLL(lib))
+
+
+@contextlib.contextmanager
+def using_library(lib):
+    """Launch every wrapper's kernel from `lib` inside the block (the
+    parent's, for timing in turns), the launch counts as ever."""
+    own = kernels.library()
+    with kernels._lock:
+        kernels._lib = lib
+    try:
+        yield
+    finally:
+        with kernels._lock:
+            kernels._lib = own
 
 
 def phase_index(tmp, genomes, num_reads, seed):
@@ -598,10 +748,12 @@ def phase_kernels(idx, eng, ceng, codes):
     vb, sc = eng._pb
     hit, csid, _ovf = minidict2_probe(slots, text32, skew, prep, vb=vb, sc=sc,
                                       **kw)
-    usable = prep[PREP_FIELDS.index("usable")]
-    minval = u32(prep[PREP_FIELDS.index("minval")])[usable]
-    slot_rows = torch.unique(mulhi32(mix32(minval), num_slots) >> 3).numel()
-    bytes2 = lanes * (7 * 4 + 3) + lanes * 6 + slot_rows * 96
+    bytes2, old2, trows, gated = k2_bytes(eng.table, prep, kw, vb)
+    log(f"[kernels] minidict2_probe's bytes at ({vb}, {sc}): "
+        f"{bytes2 / 1e6:.1f} MB with the {trows} text rows of the first "
+        f"min(vb, cnt) candidates a lane and the skew pointer rows of "
+        f"{gated} gated lanes; {old2 / 1e6:.1f} MB without them (bound "
+        f"{old2 / HBM_BYTES_PER_S * 1e3:.4f} ms)")
     ops2 = lanes * 120  # screen of 8 slots, ~1-2 verifies, hash
     t_redo, t_redo_warm = kernel_times(lambda: minidict2_probe(
         slots, text32, skew, prep, vb=eng._pb_redo[0], sc=eng._pb_redo[1],
@@ -625,7 +777,7 @@ def phase_kernels(idx, eng, ceng, codes):
     torch.cuda.synchronize()
     C32 = eng.bits.shape[1]
     distinct = torch.unique(csid[hit]).numel()
-    bytes3 = lanes * 5 + distinct * C32 * 4 + BATCH * C32 * 4
+    bytes3 = k3_bytes(hit, csid, C32)
     ms3, warm3 = kernel_times(lambda: fi_and(eng.bits, hit, csid), "fi_and",
                               flush)
     rows.append(dict(
@@ -698,6 +850,29 @@ def phase_kernels(idx, eng, ceng, codes):
     for r in rows:
         finish_row(r, "kernels")
     return rows
+
+
+def k2_bytes(tabs, prep, kw, vb, out_bytes=6, skew=True):
+    """K2's bytes on one batch of lanes at verify budget vb -> (bytes, the
+    count without text and pointer rows, text rows, gated lanes): every
+    lane's 31 B of prep read once and out_bytes written, one 96 B slot row
+    a distinct bucket row of the usable lanes (the shorter count ends
+    here), one 12 B text row for each of the first min(vb, cnt) candidates
+    of a lane (as K14's bound counts its candidates' rows) and two 32 B
+    skew pointer rows a lane the skew route takes (skew: not in stage1
+    mode); the entries it chases are not counted. The counts come from the
+    plain version's stage1 mode on the same lanes."""
+    usable = prep[PREP_FIELDS.index("usable")]
+    minval = u32(prep[PREP_FIELDS.index("minval")])[usable]
+    slot_rows = torch.unique(
+        mulhi32(mix32(minval), kw["num_slots"]) >> 3).numel()
+    lanes = usable.numel()
+    old = lanes * (7 * 4 + 3) + lanes * out_bytes + slot_rows * 96
+    hit, _csid, cnt, need = minidict2_probe_plain(*tabs, prep, vb=vb,
+                                                  stage1=True, **kw)
+    trows = int(torch.clamp(cnt, max=vb).sum())
+    gated = int((usable & ~hit & need).sum()) if skew else 0
+    return old + trows * 12 + gated * 64, old, trows, gated
 
 
 def finish_row(r, phase):
@@ -1669,26 +1844,16 @@ def call_ms(fn, names, reps, flush=None):
     gaps included; {kernel: mean device ms a call}). flush: a device
     buffer zeroed before each call, so that every call starts with a cold
     L2. A recording that holds fewer kernel events than the calls launched
-    is discarded, as in kernel_ms."""
-    from torch.profiler import ProfilerActivity, profile
-
+    is discarded, as in kernel_ms; where every recording is, the first
+    number is the stream's median too, and the dict is empty."""
     pats = [kernel_pattern(n) for n in names]
     fn()
     torch.cuda.synchronize()
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         before = sum(kernels.launches[n] for n in names)
         ts = []
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                if flush is not None:
-                    flush.zero_()
-                s = torch.cuda.Event(enable_timing=True)
-                e = torch.cuda.Event(enable_timing=True)
-                s.record()
-                fn()
-                e.record()
-                e.synchronize()
-                ts.append(s.elapsed_time(e))
+        prof = recording(lambda: ts.extend(event_ms(fn, reps, flush)),
+                         attempt)
         launched = sum(kernels.launches[n] for n in names) - before
         evs = [e for e in prof.events()
                if any(p.search(e.name) for p in pats)]
@@ -1702,8 +1867,11 @@ def call_ms(fn, names, reps, flush=None):
         log(f"[probes] {names}: the profiler recorded {len(evs)} of "
             f"{launched} launches (recording {attempt} of "
             f"{PROFILE_ATTEMPTS}), discarded")
-    raise RuntimeError(f"no recording of {PROFILE_ATTEMPTS} held all "
-                       f"{names} launches")
+    ms = statistics.median(event_ms(fn, reps, flush))
+    log(f"[probes] {names}: no recording of {PROFILE_ATTEMPTS} held all "
+        "launches; a call's time on the stream (CUDA events, launch gaps "
+        "included) stands for its kernels' device time")
+    return ms, ms, {}
 
 
 def staged_tiers(prep, stage_a, vb1, RU):
@@ -1840,13 +2008,176 @@ def phase_probe_kernels(eng, codes):
             replaces=f"fulgor_tpu/ops/minidict2.py:{line}", max_abs_err=err,
             ms=ms, warm_ms=warm, plain_ms=time_ms(plain, REPS_PLAIN),
             # the probe's prep fields read once, hit/csid/ovf written, one
-            # 96-byte slot row a distinct bucket row, as K2's bound
+            # 96-byte slot row a distinct bucket row: K2's shorter count,
+            # without the text rows (k2_bytes)
             bytes=lanes * (7 * 4 + 3 + extra) + lanes * 6 + slot_rows * 96,
             ops=lanes * 120))
     del flush
     for r in rows:
         finish_row(r, "probes")
     return err2, rows
+
+
+def k3_bytes(hit, csid, C32) -> int:
+    """K3's bytes: hit and csid read once (5 B a window), one C32-word row
+    a distinct csid of the positive windows, C32 words written a read."""
+    distinct = torch.unique(csid[hit]).numel()
+    return hit.numel() * 5 + distinct * C32 * 4 + hit.shape[0] * C32 * 4
+
+
+def edge_fi_batch(rng, C32, Wk, dev):
+    """A seeded K3 edge batch of EDGE_READS reads x Wk windows over 4,096
+    random rows (a third all-ones): each read's windows in runs 1-11 long
+    of csids from a pool of four (so that a csid recurs after other runs
+    and the AND stays non-empty), broken by misses (20% of windows; half
+    of them INVALID, half keeping the run's csid), the first 16 reads with
+    no positive window."""
+    S, B = 4096, EDGE_READS
+    dense = (rng.integers(0, 1 << 32, (S, C32), dtype=np.uint64)
+             | rng.integers(0, 1 << 32, (S, C32), dtype=np.uint64))
+    dense[: S // 3] = 0xFFFFFFFF
+    hit = rng.random((B, Wk)) < 0.8
+    hit[:16] = False
+    pick = np.repeat(rng.integers(0, 4, B * Wk),
+                     rng.integers(1, 12, B * Wk))[: B * Wk].reshape(B, Wk)
+    csid = np.take_along_axis(rng.integers(0, S, (B, 4)), pick, axis=1)
+    csid = csid.astype(np.uint32)
+    csid[~hit & (rng.random((B, Wk)) < 0.5)] = INVALID_U32
+    dense = dense.astype(np.uint32).view(np.int32)
+    return (torch.from_numpy(dense).to(dev), torch.from_numpy(hit).to(dev),
+            torch.from_numpy(csid.view(np.int32)).to(dev))
+
+
+def phase_k2k3(eng, wide, codes, parent):
+    """Phase 10b: K2 and K3 as redesigned for the card, bit for bit
+    (tolerance 0) against their plain versions. K2 in its three modes at
+    the engine's two budgets and at K2_EDGE_BUDGETS, on phase 4's batch
+    and on an odd count of lanes drawn from it (K10 and K11 launch it on
+    compacted lanes); K3 on the batch's hits at C32 = 16 and against the
+    wide index's rows (C32 = 143), at the (2, 2) grid's shard width on a
+    data row's runs (hit = run csid valid), and on K3_EDGE's seeded edge
+    batches. Then each timed at the main path's shapes, L2 cold and warm:
+    K2 at the engine's two budgets, in stage1 mode at K10's vb1 and in
+    want_entry mode at K11's budget; K3 at C32 = 16, 143 and the shard
+    width. With `parent` (a kernel library, --parent) each shape is timed
+    in turns with the parent's kernels: parent, this, this, parent.
+    -> (K2's max_abs_err, K3's)."""
+    dev = eng.device
+    chunk = np.full((BATCH, WIDTH), 4, dtype=np.uint8)
+    n = min(BATCH, len(codes))
+    chunk[:n, :READ_LEN] = codes[:n]
+    c2, bd = (torch.from_numpy(a).to(dev) for a in pack_reads_host(chunk))
+    tabs = eng.table
+    m, num_slots = eng.dparams
+    kw = dict(k=K, m=m, num_slots=num_slots)
+    Wk = WIDTH - K + 1
+    prep = tuple(t.contiguous()
+                 for t in window_prep(c2, bd, width=WIDTH, k=K, m=M))
+    lanes = probe_lanes(prep)
+    nl = lanes[0].numel()
+    g = torch.Generator(device=dev).manual_seed(EDGE_READS)
+    sel = torch.randperm(nl, device=dev, generator=g)[: nl // 3 | 1]
+    odd = prep_of_lanes([t.reshape(-1)[sel].reshape(1, -1).contiguous()
+                         for t in lanes])
+    err2 = 0
+    for vb, sc in (eng._pb, eng._pb_redo) + K2_EDGE_BUDGETS:
+        errs = []
+        for p in (prep, odd):
+            for mode in ({}, {"stage1": True}, {"want_entry": True}):
+                got = minidict2_probe(*tabs, p, vb=vb, sc=sc, **mode, **kw)
+                want = minidict2_probe_plain(*tabs, p, vb=vb, sc=sc, **mode,
+                                             **kw)
+                torch.cuda.synchronize()
+                errs.append(max_abs_err(got, want))
+        err2 = max(err2, *errs)
+        log(f"[k2k3] minidict2_probe at ({vb}, {sc}), default, stage1 and "
+            f"want_entry modes, on the batch's {nl} lanes, then on "
+            f"{odd[0].numel()} drawn from them: max_abs_err {errs}")
+
+    hit, csid, _ovf = minidict2_probe(*tabs, prep, vb=eng._pb[0],
+                                      sc=eng._pb[1], **kw)
+    wide_bits = wide.device_dense(dev)
+    rc = compact_runs(hit, csid, Wk)[0]
+    h = BATCH // GRID[0]
+    rcr = rc[:h].contiguous()
+    hr = rcr != -1
+    shard = eng.bits[:, : eng.bits.shape[1] // GRID[1]].contiguous()
+    batches = [("phase 4's batch", eng.bits, hit, csid),
+               ("phase 4's batch, the wide index's rows", wide_bits, hit,
+                csid),
+               (f"a {GRID} grid's shard, {h} reads x {Wk} runs", shard, hr,
+                rcr)]
+    rng = np.random.default_rng(EDGE_READS)
+    batches += [("an edge batch", *edge_fi_batch(rng, c, w, dev))
+                for c, w in K3_EDGE]
+    err3 = 0
+    for what, d, hh, cc in batches:
+        got = fi_and(d, hh, cc)
+        want = fi_and_plain(d, hh, cc)
+        torch.cuda.synchronize()
+        e = max_abs_err((got,), (want,))
+        err3 = max(err3, e)
+        log(f"[k2k3] fi_and on {what} (C32 = {d.shape[1]}, Wk = "
+            f"{hh.shape[1]}): {int(got.ne(0).any(dim=1).sum())} of "
+            f"{hh.shape[0]} reads non-empty, {int((~hh.any(dim=1)).sum())} "
+            f"with no positive window, max_abs_err {e}")
+    if err2 or err3:
+        raise RuntimeError("K2 or K3 disagrees with its plain version")
+
+    (vb, sc), (vbr, scr) = eng._pb, eng._pb_redo
+    vb1 = STAGED_BUDGETS[0][0]
+    vbe, sce = VERIFY_BUDGET, SKEW_CAND  # K11's want_entry launch
+    shapes = (
+        ("minidict2_probe", f"({vb}, {sc})", k2_bytes(tabs, prep, kw, vb),
+         lambda: minidict2_probe(*tabs, prep, vb=vb, sc=sc, **kw)),
+        ("minidict2_probe", f"({vbr}, {scr})",
+         k2_bytes(tabs, prep, kw, vbr),
+         lambda: minidict2_probe(*tabs, prep, vb=vbr, sc=scr, **kw)),
+        ("minidict2_probe", f"stage1 at vb {vb1}",
+         k2_bytes(tabs, prep, kw, vb1, out_bytes=10, skew=False),
+         lambda: minidict2_probe(*tabs, prep, vb=vb1, stage1=True, **kw)),
+        ("minidict2_probe", f"want_entry at ({vbe}, {sce})",
+         k2_bytes(tabs, prep, kw, vbe, out_bytes=19),
+         lambda: minidict2_probe(*tabs, prep, want_entry=True, **kw)),
+        ("fi_and", f"C32 = {eng.bits.shape[1]}",
+         (k3_bytes(hit, csid, eng.bits.shape[1]),),
+         lambda: fi_and(eng.bits, hit, csid)),
+        ("fi_and", f"C32 = {wide_bits.shape[1]}",
+         (k3_bytes(hit, csid, wide_bits.shape[1]),),
+         lambda: fi_and(wide_bits, hit, csid)),
+        ("fi_and", f"the shard's C32 = {shard.shape[1]}, {h} reads x {Wk}",
+         (k3_bytes(hr, rcr, shard.shape[1]),),
+         lambda: fi_and(shard, hr, rcr)))
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    for name, what, nbytes, fn in shapes:
+        bound = nbytes[0] / HBM_BYTES_PER_S * 1e3
+        if parent is None:
+            ms, warm = kernel_times(fn, name, flush)
+            log(f"[k2k3] {name} at {what}: {ms:.4f} ms cold L2, {warm:.4f} "
+                f"warm; bound {bound:.4f} ms ({nbytes[0] / 1e6:.1f} MB), "
+                f"{bound / ms:.1%} of it cold")
+            continue
+        with using_library(parent):
+            o1 = kernel_times(fn, name, flush)
+        n1 = kernel_times(fn, name, flush)
+        n2 = kernel_times(fn, name, flush)
+        with using_library(parent):
+            o2 = kernel_times(fn, name, flush)
+        new, old = (n1[0] + n2[0]) / 2, (o1[0] + o2[0]) / 2
+        log(f"[k2k3] {name} at {what}, in turns (parent, this, this, "
+            f"parent): this tree {n1[0]:.4f}, {n2[0]:.4f} ms cold L2 "
+            f"({n1[1]:.4f}, {n2[1]:.4f} warm); the parent's {o1[0]:.4f}, "
+            f"{o2[0]:.4f} ({o1[1]:.4f}, {o2[1]:.4f} warm): "
+            f"{old / new:.2f}x; "
+            f"bound {bound:.4f} ms ({nbytes[0] / 1e6:.1f} MB"
+            + (f"; {nbytes[1] / 1e6:.1f} MB without text and pointer rows"
+               if len(nbytes) > 1 else "")
+            + f"), {bound / new:.1%} of it cold (the parent "
+            f"{bound / old:.1%})")
+    del flush
+    log(f"[k2k3] fi_and's dynamic shared memory: {Wk * 4 * 8} B a block of "
+        f"8 reads at Wk = {Wk}, {1024 * 4 * 8} B at Wk = 1,024")
+    return err2, err3
 
 
 def phase_probes(idx, eng, reads, tmp, fi, tu):
@@ -2484,10 +2815,15 @@ def main():
     ap.add_argument("--cards-only", action="store_true",
                     help="phases 1-3, FI, TU and kmer-matches on the first "
                     "card, then phase 13 only (a machine with several cards)")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="a checkout of an earlier commit (git archive into "
+                    "a directory .gitignore lists): its K2 and K3 are built "
+                    "and timed in turns with this tree's in phase 10b")
     args = ap.parse_args()
     t_start = time.perf_counter()
     card = phase_device()
     phase_build()
+    parent = parent_library(args.parent) if args.parent else None
     tmp = tempfile.mkdtemp(prefix="fulgor_smoke_")
     try:
         idx, codes, names, reads = phase_index(tmp, args.genomes, args.reads,
@@ -2526,6 +2862,9 @@ def main():
         rows.append(wide["row"])
         err2, probe_rows = phase_probe_kernels(eng, codes)
         rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], err2)
+        err2, err3 = phase_k2k3(eng, wide["index"], codes, parent)
+        rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], err2)
+        rows[2]["max_abs_err"] = max(rows[2]["max_abs_err"], err3)
         rows += probe_rows
         probes = phase_probes(idx, eng, reads, tmp, fi, tu)
         rows += phase_mesh_kernels(eng, wide["index"], codes)

@@ -15,21 +15,33 @@ struct Text {
   long long n;
   uint32_t lo_mask, hi_mask;
 
-  // the 33-base extract of _make_extract33, compared to a k-mer packing
-  __device__ __forceinline__ bool verify(int q, uint32_t want_lo,
-                                         uint32_t want_hi) const {
+  // the 16-byte text row that holds base q's 33-base extract (clamped
+  // where _make_extract33 clips)
+  __device__ __forceinline__ uint4 row(int q) const {
     long long r = q >> 5;
     r = r < 0 ? 0 : (r > n - 1 ? n - 1 : r);
-    const uint4 row = __ldg(rows + r);
+    return __ldg(rows + r);
+  }
+
+  // the 33-base extract of _make_extract33 from its row, compared to a
+  // k-mer packing
+  __device__ __forceinline__ bool match(const uint4& t, int q,
+                                        uint32_t want_lo,
+                                        uint32_t want_hi) const {
     const uint32_t sh = 2u * static_cast<uint32_t>(q & 31);
     const bool big = sh >= 32;
     const uint32_t s2 = big ? sh - 32 : sh;
-    const uint32_t a0 = big ? row.y : row.x;
-    const uint32_t a1 = big ? row.z : row.y;
-    const uint32_t a2 = big ? row.w : row.z;
+    const uint32_t a0 = big ? t.y : t.x;
+    const uint32_t a1 = big ? t.z : t.y;
+    const uint32_t a2 = big ? t.w : t.z;
     const uint32_t lo = s2 ? (a0 >> s2) | (a1 << (32 - s2)) : a0;
     const uint32_t hi = s2 ? (a1 >> s2) | (a2 << (32 - s2)) : a1;
     return (lo & lo_mask) == want_lo && (hi & hi_mask) == want_hi;
+  }
+
+  __device__ __forceinline__ bool verify(int q, uint32_t want_lo,
+                                         uint32_t want_hi) const {
+    return match(row(q), q, want_lo, want_hi);
   }
 };
 

@@ -26,6 +26,7 @@ Composition (hybrid kind; meta/diff variants layer on the color-set store):
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -35,6 +36,8 @@ from .core import container
 from .core.colorstores import STORE_CLASSES
 
 # color_rows' memo of decoded rows is reset when it would pass this size
+# (FULGOR_ROW_MEMO_BYTES overrides it, read at each call, as fulgor_tpu
+# reads it)
 ROW_MEMO_BYTES = 4 << 30
 
 
@@ -230,8 +233,8 @@ class Index:
         large to build, only the sets a query stream touches are decoded.
         The rows live in a growing memo with a csid -> row map, so the
         fan-out is one fancy index; when the memo would pass ROW_MEMO_BYTES
-        it is reset and the working set decodes again. Rows come from the
-        dense matrix instead where it exists."""
+        (FULGOR_ROW_MEMO_BYTES) it is reset and the working set decodes
+        again. Rows come from the dense matrix instead where it exists."""
         if self._dense_bits is not None:
             return self._dense_bits[np.asarray(csids, dtype=np.int64)]
         W = self.words_per_set
@@ -243,7 +246,9 @@ class Index:
         pos = self._row_pos
         new = np.unique(csids[pos[csids] < 0])
         if len(new):
-            if (self._row_n + len(new)) * 4 * W > ROW_MEMO_BYTES:
+            cap = int(os.environ.get("FULGOR_ROW_MEMO_BYTES",
+                                     ROW_MEMO_BYTES))
+            if (self._row_n + len(new)) * 4 * W > cap:
                 self._row_memo = np.empty((4096, W), dtype=np.uint32)
                 pos.fill(-1)
                 self._row_n = 0

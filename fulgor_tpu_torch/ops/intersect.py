@@ -7,8 +7,9 @@ full_intersection_windows, its one-hot twin full_intersection_onehot and
 its runs twin compact_runs -> full_intersection_runs: all three compute the
 AND of the dense bit rows of every positive window of a read, with an
 unmapped read (no positive window) all-zero. AND is idempotent, so the
-kernel skips a window whose csid equals the last one it ANDed — the
-in-kernel form of compact_runs, exact with no run budget and no overflow.
+kernel ANDs only the rows of run starts (a positive window whose left
+neighbour is not positive with the same csid) — the in-kernel form of
+compact_runs, exact with no run budget and no overflow.
 
 K4 `tu_mask` and K5 `km_scores` replace threshold_union_scores_windows
 and _onehot: score[b, c] = the number of positive windows of read b whose
@@ -84,6 +85,9 @@ def fi_and(dense, hit, csid):
                     and csid.is_contiguous())):
         raise ValueError("fi_and: dense (S, C32) int32, hit (B, Wk) bool and "
                          "csid (B, Wk) int32, contiguous on one device")
+    if not 0 < Wk <= MAX_WK:
+        raise ValueError(f"fi_and: needs 0 < Wk <= {MAX_WK} windows a read "
+                         f"(the kernel stages them), not {Wk}")
     C32 = dense.shape[1]
     out = torch.empty((B, C32), dtype=torch.int32, device=dense.device)
     if B == 0 or C32 == 0:

@@ -68,17 +68,20 @@ def _stale() -> bool:
     return os.path.getmtime(LIB) < newest
 
 
-def build() -> str:
-    """Compile every source in parallel and link the library. -> the
-    compiler's output (ptxas register and spill report included)."""
+def build(csrc: str = CSRC, lib: str = LIB) -> str:
+    """Compile every source of `csrc` in parallel and link them into the
+    library `lib` (another checkout's sources and library: chip_smoke.py's
+    --parent). -> the compiler's output (ptxas register and spill report
+    included), also written to build.log beside the library."""
     nvcc = _nvcc()
-    os.makedirs(BUILD, exist_ok=True)
+    out_dir = os.path.dirname(lib)
+    os.makedirs(out_dir, exist_ok=True)
     procs = []
     for src in SOURCES:
-        obj = os.path.join(BUILD, src.replace(".cu", ".o"))
+        obj = os.path.join(out_dir, src.replace(".cu", ".o"))
         procs.append((src, obj, subprocess.Popen(
             [nvcc, *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-             "-Xptxas", "-v", "-c", os.path.join(CSRC, src), "-o", obj],
+             "-Xptxas", "-v", "-c", os.path.join(csrc, src), "-o", obj],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     log = []
     failed = []
@@ -89,65 +92,69 @@ def build() -> str:
             failed.append(src)
     if failed:
         raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
-    tmp = f"{LIB}.{os.getpid()}.tmp"
+    tmp = f"{lib}.{os.getpid()}.tmp"
     link = subprocess.run(
         [nvcc, *ARCH, "-shared", "-o", tmp, *(o for _s, o, _p in procs)],
         capture_output=True, text=True)
     if link.returncode != 0:
         raise RuntimeError(f"linking the kernels failed:\n{link.stderr}")
-    os.replace(tmp, LIB)
+    os.replace(tmp, lib)
     text = "\n".join(log)
-    with open(os.path.join(BUILD, "build.log"), "w") as f:
+    with open(os.path.join(out_dir, "build.log"), "w") as f:
         f.write(text)
     return text
+
+
+def bind(lib):
+    """Set the argument and result types of every C entry point of a
+    loaded kernel library. -> lib"""
+    P, I = ct.c_void_p, ct.c_int
+    lib.fulgor_window_prep.argtypes = [P, P, I, I, I, I] + [P] * 12 + [P]
+    lib.fulgor_minidict2_probe.argtypes = (
+        [P, ct.c_int64, P, ct.c_int64, P, ct.c_int64]
+        + [P] * 10 + [ct.c_int64, I, I, ct.c_uint32, I, I, I] + [P] * 7
+        + [P])
+    lib.fulgor_fi_and.argtypes = [P, I, P, P, I, I, P, P]
+    lib.fulgor_tu_mask.argtypes = [P, I, I, P, P, I, I, P, P, P]
+    lib.fulgor_km_scores.argtypes = [P, I, I, P, P, I, I, P, P, P]
+    lib.fulgor_compact_runs.argtypes = [P, P, I, I, I] + [P] * 5 + [P]
+    lib.fulgor_cuckoo_lookup.argtypes = [P, I, P, P, I, I, I, P, P, P]
+    lib.fulgor_pack_codes.argtypes = [P, I, I, P, P, P]
+    lib.fulgor_first_set_bits.argtypes = [P, I, I, I, P, P, P]
+    lib.fulgor_staged_split.argtypes = [P] * 4 + [I] * 5 + [P] * 8
+    lib.fulgor_staged_merge.argtypes = [P] * 10 + [I] * 4 + [P] * 4
+    lib.fulgor_anchored_anchors.argtypes = [P] * 3 + [I] * 3 + [P] * 4
+    lib.fulgor_anchored_extend.argtypes = (
+        [P, ct.c_int64, P] + [P] * 4 + [P] * 7 + [I] * 5 + [P] * 6)
+    lib.fulgor_anchored_merge.argtypes = [P] * 4 + [I] * 3 + [P] * 4
+    lib.fulgor_runs_scores.argtypes = [P, I, I, P, P, I, I, I, P, P, I, P,
+                                       P]
+    lib.fulgor_pack_hits.argtypes = [P, P, I, I, P, P, P]
+    L = ct.c_int64
+    lib.fulgor_minidict_v1_verify.argtypes = (
+        [P, L, P, L, P, L] + [P] * 8 + [L, I, I, I] + [P] * 3 + [P])
+    for fn in (lib.fulgor_window_prep, lib.fulgor_minidict2_probe,
+               lib.fulgor_fi_and, lib.fulgor_tu_mask,
+               lib.fulgor_km_scores, lib.fulgor_compact_runs,
+               lib.fulgor_cuckoo_lookup, lib.fulgor_pack_codes,
+               lib.fulgor_first_set_bits, lib.fulgor_staged_split,
+               lib.fulgor_staged_merge, lib.fulgor_anchored_anchors,
+               lib.fulgor_anchored_extend, lib.fulgor_anchored_merge,
+               lib.fulgor_runs_scores, lib.fulgor_pack_hits,
+               lib.fulgor_minidict_v1_verify):
+        fn.restype = I
+    return lib
 
 
 def library():
     """The loaded kernel library, built first if a source is newer."""
     global _lib
     with _lock:
-        if _lib is not None:
-            return _lib
-        if _stale():
-            build()
-        lib = ct.CDLL(LIB)
-        P, I = ct.c_void_p, ct.c_int
-        lib.fulgor_window_prep.argtypes = [P, P, I, I, I, I] + [P] * 12 + [P]
-        lib.fulgor_minidict2_probe.argtypes = (
-            [P, ct.c_int64, P, ct.c_int64, P, ct.c_int64]
-            + [P] * 10 + [ct.c_int64, I, I, ct.c_uint32, I, I, I] + [P] * 7
-            + [P])
-        lib.fulgor_fi_and.argtypes = [P, I, P, P, I, I, P, P]
-        lib.fulgor_tu_mask.argtypes = [P, I, I, P, P, I, I, P, P, P]
-        lib.fulgor_km_scores.argtypes = [P, I, I, P, P, I, I, P, P, P]
-        lib.fulgor_compact_runs.argtypes = [P, P, I, I, I] + [P] * 5 + [P]
-        lib.fulgor_cuckoo_lookup.argtypes = [P, I, P, P, I, I, I, P, P, P]
-        lib.fulgor_pack_codes.argtypes = [P, I, I, P, P, P]
-        lib.fulgor_first_set_bits.argtypes = [P, I, I, I, P, P, P]
-        lib.fulgor_staged_split.argtypes = [P] * 4 + [I] * 5 + [P] * 8
-        lib.fulgor_staged_merge.argtypes = [P] * 10 + [I] * 4 + [P] * 4
-        lib.fulgor_anchored_anchors.argtypes = [P] * 3 + [I] * 3 + [P] * 4
-        lib.fulgor_anchored_extend.argtypes = (
-            [P, ct.c_int64, P] + [P] * 4 + [P] * 7 + [I] * 5 + [P] * 6)
-        lib.fulgor_anchored_merge.argtypes = [P] * 4 + [I] * 3 + [P] * 4
-        lib.fulgor_runs_scores.argtypes = [P, I, I, P, P, I, I, I, P, P, I, P,
-                                           P]
-        lib.fulgor_pack_hits.argtypes = [P, P, I, I, P, P, P]
-        L = ct.c_int64
-        lib.fulgor_minidict_v1_verify.argtypes = (
-            [P, L, P, L, P, L] + [P] * 8 + [L, I, I, I] + [P] * 3 + [P])
-        for fn in (lib.fulgor_window_prep, lib.fulgor_minidict2_probe,
-                   lib.fulgor_fi_and, lib.fulgor_tu_mask,
-                   lib.fulgor_km_scores, lib.fulgor_compact_runs,
-                   lib.fulgor_cuckoo_lookup, lib.fulgor_pack_codes,
-                   lib.fulgor_first_set_bits, lib.fulgor_staged_split,
-                   lib.fulgor_staged_merge, lib.fulgor_anchored_anchors,
-                   lib.fulgor_anchored_extend, lib.fulgor_anchored_merge,
-                   lib.fulgor_runs_scores, lib.fulgor_pack_hits,
-                   lib.fulgor_minidict_v1_verify):
-            fn.restype = I
-        _lib = lib
-        return lib
+        if _lib is None:
+            if _stale():
+                build()
+            _lib = bind(ct.CDLL(LIB))
+        return _lib
 
 
 def build_seconds() -> float:

@@ -48,6 +48,7 @@ from .minidict2 import (
 from .u32 import M32, i32, mix32, mulhi32, u32
 
 MAX_SKEW_CAND = 2 * SKEW_ROWW  # the kernel keeps at most this many pointers
+MAX_LANES = (1 << 31) - 256  # the kernel's lane index is 32-bit
 
 
 def _masks(k: int):
@@ -224,7 +225,8 @@ def empty_lanes(lanes, shape):
 
 def check_probe_inputs(name, slots, text32, skew, prep):
     """Raise unless the tables and the prep's probe fields are contiguous
-    CUDA tensors of the kernels' dtypes and shapes, on one device."""
+    CUDA tensors of the kernels' dtypes and shapes, on one device, and the
+    tables start 16-byte aligned."""
     if slots.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {slots.device}")
     tabs = (slots, text32, skew)
@@ -234,6 +236,10 @@ def check_probe_inputs(name, slots, text32, skew, prep):
             or skew.shape[1] != SKEW_ROWW):
         raise ValueError(f"{name}: tables must be contiguous int32 "
                          "(R, 24), (N, 4), (NR, 8) on one device")
+    if any(t.data_ptr() % 16 for t in tabs):
+        raise ValueError(f"{name}: the kernels read slot, text and skew "
+                         "rows as 16-byte vectors: the tables must start "
+                         "16-byte aligned")
     shape = tuple(prep[0].shape)
     dtypes = (torch.int32,) * 3 + (torch.bool,) * 2 + (torch.int32,) * 4 + (
         torch.bool,)
@@ -286,6 +292,9 @@ def minidict2_probe(slots, text32, skew, prep, *, k: int, m: int,
     n = minval.numel()
     if n == 0:
         return outs
+    if n > MAX_LANES:
+        raise ValueError(f"minidict2_probe: at most {MAX_LANES} lanes a "
+                         f"launch, not {n}")
     ptrs = [t.data_ptr() for t in extra] + [None] * (4 - len(extra))
     lib = kernels.library()
     rc = lib.fulgor_minidict2_probe(

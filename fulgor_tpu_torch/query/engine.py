@@ -182,6 +182,12 @@ class AsyncWriter:
 
 WIDTH_LADDER = (64, 96, 128, 160, 192, 256, 384, 512, 768, 1024)
 MAX_STREAM_WIDTH = WIDTH_LADDER[-1]
+# The tuning values below are fulgor_tpu's defaults; the environment
+# variables it reads override them, read when an engine is made (fulgor_tpu
+# reads some at import): FULGOR_MAX_LANES, FULGOR_REDO_FLUSH,
+# FULGOR_RUNS_MIN_WORDS, FULGOR_RUNS_FI_BUDGET, FULGOR_FI_KEY_CACHE (entries,
+# which wins) or FULGOR_FI_KEY_CACHE_BYTES, FULGOR_DENSE_MAX_BYTES (below an
+# explicit dense_max_bytes=), and index.py's FULGOR_ROW_MEMO_BYTES.
 # Probe-lane budget per dispatch, B_eff * (W - k + 1) <= MAX_LANES: wide
 # ladder rungs dispatch in smaller sub-batches (fulgor_tpu's value; the
 # card's own limit is re-measured in a later slice).
@@ -199,6 +205,13 @@ RUNS_FI_BUDGET = 48
 T_LIST = 64
 # the runs fetch's cache of ANDed keys, in bytes
 FI_KEY_CACHE_BYTES = 256 << 20
+# the largest dense colour matrix an engine builds
+DENSE_MAX_BYTES = 3 << 30
+
+
+def _env_int(name: str, default: int) -> int:
+    """The integer in environment variable `name`, else `default`."""
+    return int(os.environ.get(name, default))
 
 
 def _runs_budget(W: int, ekpu: float = 64.0, k: int = 31) -> int:
@@ -331,7 +344,8 @@ class QueryEngine:
     launch sequence on every cell under a mesh)."""
 
     def __init__(self, index: Index, batch_size: int = 32768, device=None,
-                 dense_max_bytes: int = 3 << 30, use_mesh=None, mesh=None):
+                 dense_max_bytes: int | None = None, use_mesh=None,
+                 mesh=None):
         if mesh is None and (use_mesh or (
                 use_mesh is None and device is None
                 and torch.cuda.is_available()
@@ -380,23 +394,37 @@ class QueryEngine:
         self._pb_redo = (_probe_budget_env("FULGOR_PROBE_BUDGET_REDO",
                                            pb_redo)
                          if pb_redo else REDO_BUDGET)
+        self.max_lanes = _env_int("FULGOR_MAX_LANES", MAX_LANES)
+        self.redo_flush = _env_int("FULGOR_REDO_FLUSH", REDO_FLUSH)
         # colour-stage strategy (fulgor_tpu engine.py:193-291); plain
         # attributes, so that a caller can force one. dense_max_bytes is the
-        # largest dense colour matrix the engine builds (fulgor_tpu's
-        # FULGOR_DENSE_MAX_BYTES default); past it the no-dense paths run
+        # largest dense colour matrix the engine builds; past it the
+        # no-dense paths run
+        if dense_max_bytes is None:
+            dense_max_bytes = _env_int("FULGOR_DENSE_MAX_BYTES",
+                                       DENSE_MAX_BYTES)
+        self.dense_max_bytes = dense_max_bytes
+        self.runs_min_words = _env_int("FULGOR_RUNS_MIN_WORDS",
+                                       RUNS_MIN_WORDS)
+        self.runs_fi_budget = _env_int("FULGOR_RUNS_FI_BUDGET",
+                                       RUNS_FI_BUDGET)
         words = index.words_per_set
         dense_ok = index.num_color_sets * words * 4 <= dense_max_bytes
-        large_c = words > RUNS_MIN_WORDS
+        large_c = words > self.runs_min_words
         self._dense_ok = dense_ok
         self._runs_ok = self._ekpu >= 8.0
         self.use_lists = large_c and not self._runs_ok and dense_ok
         self.use_runs_fetch = large_c and (self._runs_ok or not dense_ok)
         self.use_tu_runs = not dense_ok
-        self._runs_R = RUNS_FI_BUDGET
-        # runs fetch: sorted distinct run csids (bytes) -> ANDed row
+        self._runs_R = self.runs_fi_budget
+        # runs fetch: sorted distinct run csids (bytes) -> ANDed row; the
+        # cap in entries from the byte budget (a row and a key of about a
+        # row an entry) unless the entry count is set
         self._fi_key_cache: dict = {}
-        self._fi_key_cache_cap = max(
-            1024, FI_KEY_CACHE_BYTES // max(64, 8 * words))
+        self._fi_key_cache_cap = _env_int(
+            "FULGOR_FI_KEY_CACHE",
+            max(1024, _env_int("FULGOR_FI_KEY_CACHE_BYTES",
+                               FI_KEY_CACHE_BYTES) // max(64, 8 * words)))
         # FULGOR_SELFCHECK=N: reads whose global id is divisible by N
         # recompute through the exact host mirror and must match the device
         # result. 0/unset disables.
@@ -470,11 +498,11 @@ class QueryEngine:
         return MAX_STREAM_WIDTH
 
     def _batch_for_width(self, W: int) -> int:
-        """Largest dispatch batch whose lane count B*(W-k+1) fits MAX_LANES,
+        """Largest dispatch batch whose lane count B*(W-k+1) fits max_lanes,
         rounded down to a multiple of 256 (and, under a mesh, up to a
         multiple of the cell count)."""
         Wk = max(1, W - self.k + 1)
-        b = max(256, min(self.batch, (MAX_LANES // Wk) & ~255))
+        b = max(256, min(self.batch, (self.max_lanes // Wk) & ~255))
         return b if self.mesh is None else _round_up(b, self.mesh.size)
 
     def _host_csids(self, row_codes: np.ndarray):
@@ -1241,7 +1269,7 @@ class QueryEngine:
             return self._fetch(*out)
 
         # Deferred redo: overflow and over-long reads wait here as (read id,
-        # codes | None = re-parse) and are resolved REDO_FLUSH at a time. A
+        # codes | None = re-parse) and are resolved redo_flush at a time. A
         # flush launches the device re-probe and the pool is written one
         # flush later (or at the end), pools strictly in order.
         deferred: list = []
@@ -1257,7 +1285,7 @@ class QueryEngine:
         def flush_deferred(final=False):
             nonlocal redo_sec, num_redo_host
             tr = time.perf_counter()
-            if deferred and (final or len(deferred) >= REDO_FLUSH):
+            if deferred and (final or len(deferred) >= self.redo_flush):
                 from ..native import lib as native
 
                 long_pos = [i for i, (_, r) in enumerate(deferred) if r is None]
@@ -1355,8 +1383,9 @@ class QueryEngine:
             runs, povf, rovf = (a[:n] for a in fetch.numpy())
             th = time.perf_counter()
             query_sec += th - tq
-            if n and rovf.mean() > 0.02 and self._runs_R == RUNS_FI_BUDGET:
-                self._runs_R = 2 * RUNS_FI_BUDGET  # for later batches
+            if (n and rovf.mean() > 0.02
+                    and self._runs_R == self.runs_fi_budget):
+                self._runs_R = 2 * self.runs_fi_budget  # for later batches
             fit = lens <= MAX_STREAM_WIDTH
             keep = fit & ~povf & ~rovf
             # past the run budget only: every window was decided, so the

@@ -12,7 +12,9 @@ keep their ids and the dictionary stays valid.
 - the runs fetch with its run budget forced to 2 (the run-overflow gather
   fires) and the no-dense-matrix regime (dense_max_bytes=0, with
   dense_color_bits raising): FI, TU at 0.8 and 0.25 and --deduplicate
-  files equal fulgor_tpu's, records sorted by read id.
+  files equal fulgor_tpu's, records sorted by read id;
+- fulgor_tpu's eight tuning variables, each reaching the port's engine or
+  index, FULGOR_DENSE_MAX_BYTES=0 also through the port's CLI.
 """
 
 import dataclasses
@@ -24,7 +26,7 @@ import pytest
 from fulgor_tpu.core.colorstores import HybridStore as JHybridStore
 from fulgor_tpu.index import Index as JIndex
 from fulgor_tpu.query import engine as JE
-from fulgor_tpu_torch import index as TI
+from fulgor_tpu_torch import cli as tcli
 from fulgor_tpu_torch.core.colorstores import HybridStore as THybridStore
 from fulgor_tpu_torch.index import Index as TIndex
 from fulgor_tpu_torch.query import engine as E
@@ -200,7 +202,6 @@ def test_color_rows_match_reference(wide, monkeypatch):
     fulgor_tpu's and against the dense rows."""
     j, t = _fresh(wide[0]), _fresh(wide[1])
     monkeypatch.setenv("FULGOR_ROW_MEMO_BYTES", str(20 * 143 * 4))
-    monkeypatch.setattr(TI, "ROW_MEMO_BYTES", 20 * 143 * 4)
     rng = np.random.default_rng(9)
     for n in (5, 12, 18, 3):  # the third call resets the memo
         ids = rng.integers(0, t.num_color_sets, size=n)
@@ -256,3 +257,85 @@ def test_runs_fetch_writes_every_format(wide, tmp_path, monkeypatch, fmt):
     got = _records(out_t, fmt)
     assert got == _records(out_j, "ascii") and len(got) == NUM_READS
     assert st["num_run_ovf"] > 0 and teng.idx._dense_bits is None
+
+
+def _no_dense(*_args):
+    raise AssertionError("the dense colour matrix was built")
+
+
+TUNING = ["FULGOR_MAX_LANES", "FULGOR_REDO_FLUSH", "FULGOR_RUNS_MIN_WORDS",
+          "FULGOR_RUNS_FI_BUDGET", "FULGOR_FI_KEY_CACHE",
+          "FULGOR_FI_KEY_CACHE_BYTES", "FULGOR_ROW_MEMO_BYTES",
+          "FULGOR_DENSE_MAX_BYTES"]
+
+
+@pytest.mark.parametrize("var", TUNING)
+def test_tuning_variables_reach_the_port(wide, tmp_path, monkeypatch, var):
+    """Each of fulgor_tpu's tuning variables, set in the environment,
+    reaches what it tunes in the port, with fulgor_tpu's defaults and
+    precedence: the key cache's entry count wins over its bytes (the caps
+    equal fulgor_tpu's engine's), an explicit dense_max_bytes= wins over
+    FULGOR_DENSE_MAX_BYTES. FULGOR_DENSE_MAX_BYTES=0 through the port's
+    CLI takes the no-dense path (the dense matrix forbidden): its TU(0.8)
+    file holds the records of the run with the dense matrix allowed."""
+    t = wide[1]
+
+    def port(**kw):
+        return E.QueryEngine(_fresh(t), batch_size=kw.pop("batch", BATCH),
+                             device="cpu", **kw)
+
+    if var == "FULGOR_MAX_LANES":
+        assert port(batch=4096)._batch_for_width(160) == 4096
+        monkeypatch.setenv(var, "123456")
+        eng = port(batch=4096)
+        assert eng.max_lanes == 123456
+        assert eng._batch_for_width(160) == (123456 // 130) & ~255
+    elif var == "FULGOR_REDO_FLUSH":
+        monkeypatch.setenv(var, "77")
+        assert port().redo_flush == 77
+    elif var == "FULGOR_RUNS_MIN_WORDS":
+        assert port().use_runs_fetch  # 143 words: past the default 64
+        monkeypatch.setenv(var, "143")
+        eng = port()
+        assert eng.runs_min_words == 143 and not eng.use_runs_fetch
+    elif var == "FULGOR_RUNS_FI_BUDGET":
+        monkeypatch.setenv(var, "5")
+        eng = port()
+        assert eng.runs_fi_budget == 5 and eng._runs_R == 5
+    elif var.startswith("FULGOR_FI_KEY_CACHE"):
+        monkeypatch.setenv("FULGOR_FI_KEY_CACHE_BYTES", str(2000 * 143 * 8))
+        if var == "FULGOR_FI_KEY_CACHE":
+            monkeypatch.setenv(var, "9")
+        jeng = JE.QueryEngine(_fresh(wide[0]), batch_size=BATCH,
+                              use_mesh=False)
+        cap = port()._fi_key_cache_cap
+        assert cap == jeng._fi_key_cache_cap == (9 if var.endswith("CACHE")
+                                                 else 2000)
+    elif var == "FULGOR_ROW_MEMO_BYTES":
+        for memo, rows in ((None, 30), (20 * 143 * 4, 15)):
+            if memo:
+                monkeypatch.setenv(var, str(memo))
+            idx = _fresh(t)
+            idx.color_rows(np.arange(15))
+            idx.color_rows(np.arange(15, 30))  # past 20 rows: a reset
+            assert idx._row_n == rows
+    else:
+        path = str(tmp_path / "wide.tfur")
+        _fresh(t).save(path)
+        monkeypatch.setenv(var, "0")
+        assert port().use_tu_runs
+        assert not port(dense_max_bytes=3 << 30).use_tu_runs
+        outs = []
+        for limit in (None, "0"):
+            if limit is None:
+                monkeypatch.delenv(var)
+            else:
+                monkeypatch.setenv(var, limit)
+                for name in ("dense_color_bits", "device_dense"):
+                    monkeypatch.setattr(TIndex, name, _no_dense)
+            outs.append(str(tmp_path / f"tu_{limit}.tsv"))
+            assert tcli.main(["pseudoalign", "-i", path, "-q", wide[2],
+                              "-o", outs[-1], "-r", "0.8", "--device", "cpu",
+                              "--batch-size", str(BATCH)]) == 0
+        got, want = sorted_records(outs[1]), sorted_records(outs[0])
+        assert got == want and len(got) == NUM_READS

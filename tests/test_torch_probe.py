@@ -1,6 +1,7 @@
 """Dictionary probe (kernel K2): the port's plain PyTorch version against
-fulgor_tpu's lookup_minidict2_packed at the engine's budgets, bit-exact on
-hit, csid and ovf (tolerance 0)."""
+fulgor_tpu's lookup_minidict2_packed at the engine's budgets and at the
+kernel's edge budgets (none verified; wider than a slot row's 16
+candidates), bit-exact on hit, csid and ovf (tolerance 0)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +20,8 @@ from tests.test_native import write_fasta
 from tests.test_torch_threads import one_thread  # noqa: F401
 
 W = 64
-BUDGETS = [(2, 2), (4, 4), (3, 3), (8, 4), None, (1, 1)]
+# (0, 2): no verify; (20, 4): more than the 16 candidates of a slot row
+BUDGETS = [(2, 2), (4, 4), (3, 3), (8, 4), None, (1, 1), (0, 2), (20, 4)]
 
 
 # six near-identical genomes: shared minimizers across unitigs form heavy
