@@ -101,21 +101,29 @@ last line, which is printed only when every phase passed:
               each a warm-up, three timed passes (the staged ones in turns
               with one-pass passes of the same tool) and a profiled pass to
               a file, which must hold phase 5's FI or phase 6's TU records.
- 10b. k2k3   K2 and K3 as redesigned for the card, bit for bit against
-              their plain versions: K2 in its three modes at the engine's
-              two budgets and at (0, 2) and (20, 4) (no verify; more than a
-              slot row's 16 candidates), on phase 4's batch and on an odd
-              count of lanes drawn from it; K3 on the batch at C32 = 16 and
-              against the wide index's rows (C32 = 143), on a (2, 2) grid
-              shard's runs (C32 = 8), and on seeded edge batches (C32 1, 8,
-              17, 143; Wk 1, 33, 130, 1,024; holes in hit, unmapped reads).
+ 10b. k2-k5  K2, K3, K4 and K5 as redesigned for the card, bit for bit
+              against their plain versions: K2 in its three modes at the
+              engine's two budgets and at (0, 2) and (20, 4) (no verify;
+              more than a slot row's 16 candidates), on phase 4's batch and
+              on an odd count of lanes drawn from it; K3 on the batch at C32
+              = 16 and against the wide index's rows (C32 = 143), on a (2,
+              2) grid shard's runs (C32 = 8), and on seeded edge batches
+              (C32 1, 8, 17, 143; Wk 1, 33, 130, 1,024; holes in hit,
+              unmapped reads); K4 at tau 0.8 and 1.0 and K5 on the batch at
+              C32 = 16 and against the wide rows (4,546 colours), and on the
+              same edge batches with a ragged C = 32 C32 - 5 and one read
+              whose every window is positive with one all-colour csid (its
+              score Wk, 1,024 at the widest), K4 also at tau 0.01 (need 0).
               Then K2 at the engine's two budgets, in stage1 mode (K10's
-              vb1) and want_entry mode (K11's budget), and K3 at C32 = 16,
-              143 and the shard width, each timed cold L2 and warm with its
-              byte bound (K2's counting the text rows of the first
-              min(vb, cnt) candidates a lane, the count without them
-              beside it); with --parent in turns with DIR's kernels
-              (parent, this, this, parent).
+              vb1) and want_entry mode (K11's budget), K3 at C32 = 16, 143
+              and the shard width, and K4 (tau 0.8) and K5 at C32 = 16 and
+              143, each timed cold L2 and warm with its byte bound (K2's
+              counting the text rows of the first min(vb, cnt) candidates a
+              lane, the count without them beside it); with --parent in
+              turns with DIR's kernels (parent, this, this, parent). Last,
+              TU(0.8) and kmer-matches passes (to /dev/null; with --parent
+              one pass each in turns with DIR's kernels) and a profiled
+              pass of each: the card's busy time and K4's or K5's share.
  11. mesh     the mesh query path (parallel/mesh.py) on the one card. (a)
               On phase 4's batch, bit for bit: K12 runs_scores over K6's
               runs at R = Wk, mask (tau 0.8) and u16 modes, on every colour
@@ -404,6 +412,15 @@ V1_LONG_READS, V1_LONG_LEN = 64, 3000
 K2_EDGE_BUDGETS = ((0, 2), (20, 4))
 K3_EDGE = ((1, 1), (1, 1024), (143, 1), (143, 1024), (8, 33), (17, 130))
 EDGE_READS = 777
+# K4's edge thresholds (0.01: need 0 up to npos 99, every colour below C
+# passes), and the colours a K4/K5 edge batch leaves out of its last word;
+# the profiled TU and kmer-matches passes a tool may take
+K4_EDGE_TAUS = (0.01, TAU, 1.0)
+EDGE_RAGGED = 5
+E2E_PROFILES = 2
+# csrc/union.cu kTable: K4 takes a read of at most this many runs by its
+# truth table, a longer one bit-sliced
+K4_TABLE_RUNS = 4
 
 
 def log(msg):
@@ -614,16 +631,17 @@ def phase_build():
 def parent_library(parent):
     """The kernel library of another checkout of this repository (--parent:
     an earlier commit unpacked with git archive), built from its csrc/
-    into its own _build/ and bound as this one: its K2 and K3 are timed in
-    turns with this tree's in phase 10b. The C entry points of both trees
-    must take the same arguments."""
+    into its own _build/ and bound as this one: its K2-K5 are timed in
+    turns with this tree's in phase 10b, and its K4 and K5 drive TU and
+    kmer-matches passes in turns with this tree's. The C entry points of
+    both trees must take the same arguments."""
     pkg = os.path.join(os.path.abspath(parent), "fulgor_tpu_torch")
     lib = os.path.join(pkg, "_build", "libfulgor_kernels.so")
     t0 = time.perf_counter()
     text = kernels.build(os.path.join(pkg, "csrc"), lib)
     log(f"[build] the parent's kernels ({parent}) built in "
-        f"{time.perf_counter() - t0:.2f} s; its K2 and K3:")
-    log_resources("build", text, ("probe.cu", "intersect.cu"))
+        f"{time.perf_counter() - t0:.2f} s; its K2-K5:")
+    log_resources("build", text, ("probe.cu", "intersect.cu", "union.cu"))
     return kernels.bind(ct.CDLL(lib))
 
 
@@ -836,6 +854,13 @@ def phase_kernels(idx, eng, ceng, codes):
         + BATCH * ((Wk + 31) // 32) * 4, ops=runs * C))
     log(f"[kernels] tu_mask/km_scores: {runs} runs of equal csids in the "
         f"batch ({runs / BATCH:.2f} a read), {C} colours")
+    nr = runs_per_read(hit, csid)
+    long = nr > K4_TABLE_RUNS
+    log(f"[kernels] tu_mask takes {int((~long & (nr > 0)).sum())} reads of "
+        f"1-{K4_TABLE_RUNS} runs by its truth table and "
+        f"{int(long.sum())} ({float(long.float().mean()):.1%}) bit-sliced, "
+        f"{float(nr[long].float().mean()) if long.any() else 0:.2f} runs "
+        f"each, {int(nr[long].sum())} of the batch's {runs} runs")
     del flush
     errs_wide = phase_wide_c(eng, hit, csid)
     rows[-2]["max_abs_err"] = max(rows[-2]["max_abs_err"], errs_wide[0])
@@ -1026,11 +1051,16 @@ def phase_runs_tu(eng, c2, bd) -> int:
     return err
 
 
-def count_runs(hit, csid) -> int:
-    """Runs of consecutive positive windows with equal csid in a batch."""
+def runs_per_read(hit, csid):
+    """Each read's runs of consecutive positive windows with equal csid."""
     cont = torch.zeros_like(hit)
     cont[:, 1:] = hit[:, :-1] & (csid[:, 1:] == csid[:, :-1])
-    return int((hit & ~cont).sum())
+    return (hit & ~cont).sum(dim=1)
+
+
+def count_runs(hit, csid) -> int:
+    """Runs of consecutive positive windows with equal csid in a batch."""
+    return int(runs_per_read(hit, csid).sum())
 
 
 def phase_wide_c(eng, hit, csid):
@@ -2048,20 +2078,111 @@ def edge_fi_batch(rng, C32, Wk, dev):
             torch.from_numpy(csid.view(np.int32)).to(dev))
 
 
-def phase_k2k3(eng, wide, codes, parent):
-    """Phase 10b: K2 and K3 as redesigned for the card, bit for bit
-    (tolerance 0) against their plain versions. K2 in its three modes at
+def k5_bytes(hit, csid, C32, C) -> int:
+    """K5's bytes: hit and csid read once, one C32-word row a distinct
+    csid of the positive windows, C int16 scores and the hit words written
+    a read."""
+    B, Wk = hit.shape
+    distinct = torch.unique(csid[hit]).numel()
+    return hit.numel() * 5 + distinct * C32 * 4 + B * (C * 2
+                                                       + (Wk + 31) // 32 * 4)
+
+
+def check_k4k5(eng, wide_bits, hit, csid, edges):
+    """K4 and K5 against their plain versions, bit for bit: on phase 4's
+    batch at the index's colours and against the wide index's rows at
+    WIDE_C, K4 at tau TAU and 1.0; on K3's edge batches with C = 32 C32 -
+    EDGE_RAGGED and read 16 (the first with positive windows) made
+    positive in every window with csid 0, a row of every colour (its score
+    Wk), K4 at K4_EDGE_TAUS. -> (K4's max_abs_err, K5's)."""
+    cases = [("phase 4's batch", eng.bits, hit, csid, eng.idx.num_colors,
+              (TAU, 1.0)),
+             ("phase 4's batch, the wide index's rows", wide_bits, hit, csid,
+              WIDE_C, (TAU, 1.0))]
+    for dense, h, c in edges:
+        h, c = h.clone(), c.clone()
+        h[16] = True
+        c[16] = 0
+        cases.append(("an edge batch", dense, h, c,
+                      32 * dense.shape[1] - EDGE_RAGGED, K4_EDGE_TAUS))
+    err4 = err5 = 0
+    for what, d, h, c, C, taus in cases:
+        e4 = []
+        for tau in taus:
+            tab = eng._minscore_tab(tau, h.shape[1])
+            got = tu_mask(d, h, c, tab, C)
+            want = tu_mask_plain(d, h, c, tab, C)
+            torch.cuda.synchronize()
+            e4.append(max_abs_err((got,), (want,)))
+        got = km_scores(d, h, c, C)
+        want = km_scores_plain(d, h, c, C)
+        torch.cuda.synchronize()
+        e5 = max_abs_err(got, want)
+        err4, err5 = max(err4, *e4), max(err5, e5)
+        log(f"[k2-k5] tu_mask at tau {taus} and km_scores on {what} (C32 = "
+            f"{d.shape[1]}, C = {C}, Wk = {h.shape[1]}): max score "
+            f"{int(got[1].max())}, max_abs_err {e4} and {e5}")
+    return err4, err5
+
+
+def e2e_in_turns(eng, reads, parent):
+    """TU(TAU) and kmer-matches passes to /dev/null: with `parent`, one
+    pass each in turns with the parent's kernels (parent, this, this,
+    parent); then a profiled pass of each on this tree's (a second where
+    the profiler dropped launches of K4 or K5): the card's busy time and
+    K4's or K5's share of it."""
+    tools = (("tu", "tu_mask", lambda: eng.pseudoalign_file(
+        reads, os.devnull, threshold=TAU)),
+        ("km", "km_scores", lambda: eng.kmer_matches_file(reads,
+                                                          os.devnull)))
+    for path, name, fn in tools:
+        if parent is not None:
+            rates = {"this": [], "parent": []}
+            for who in ("parent", "this", "this", "parent"):
+                with (using_library(parent) if who == "parent"
+                      else contextlib.nullcontext()):
+                    rates[who] += timed_passes(path, fn, 1)[0]
+            new = statistics.median(rates["this"])
+            old = statistics.median(rates["parent"])
+            log(f"[k2-k5] {path} passes in turns (parent, this, this, "
+                f"parent): this tree {rates['this']}, the parent's "
+                f"{rates['parent']} reads/s: {new / old:.3f}x")
+        # the profiler may drop a pass's launches (kernel_ms): up to
+        # E2E_PROFILES passes, until one holds every launch of `name`
+        for attempt in range(1, E2E_PROFILES + 1):
+            kernels.reset_launches()
+            wall, busy, per_kernel, _st = device_busy(fn)
+            launched = kernels.launches[name]
+            if busy is None:
+                log(f"[k2-k5] {path} profiled pass: {wall:.3f} s; card busy "
+                    "not measured (the profiler recorded no device activity)")
+                break
+            n, ms = per_kernel[name]
+            log(f"[k2-k5] {path} profiled pass {attempt}: {wall:.3f} s wall, "
+                f"card busy {busy * 1e3:.2f} ms (idle share "
+                f"{1 - busy / wall:.4f}); {name} {n} of {launched} launches "
+                f"recorded, {ms:.3f} ms, {ms / (busy * 1e3):.1%} of the busy "
+                f"time; per kernel (launches, device ms) {per_kernel}")
+            if n == launched:
+                break
+
+
+def phase_k2_to_k5(eng, wide, codes, reads, parent):
+    """Phase 10b: K2, K3, K4 and K5 as redesigned for the card, bit for
+    bit (tolerance 0) against their plain versions. K2 in its three modes at
     the engine's two budgets and at K2_EDGE_BUDGETS, on phase 4's batch
     and on an odd count of lanes drawn from it (K10 and K11 launch it on
     compacted lanes); K3 on the batch's hits at C32 = 16 and against the
     wide index's rows (C32 = 143), at the (2, 2) grid's shard width on a
     data row's runs (hit = run csid valid), and on K3_EDGE's seeded edge
-    batches. Then each timed at the main path's shapes, L2 cold and warm:
-    K2 at the engine's two budgets, in stage1 mode at K10's vb1 and in
-    want_entry mode at K11's budget; K3 at C32 = 16, 143 and the shard
-    width. With `parent` (a kernel library, --parent) each shape is timed
-    in turns with the parent's kernels: parent, this, this, parent.
-    -> (K2's max_abs_err, K3's)."""
+    batches; K4 and K5 as check_k4k5 says. Then each timed at the main
+    path's shapes, L2 cold and warm: K2 at the engine's two budgets, in
+    stage1 mode at K10's vb1 and in want_entry mode at K11's budget; K3 at
+    C32 = 16, 143 and the shard width; K4 at tau TAU and K5 at C32 = 16
+    and 143. With `parent` (a kernel library, --parent) each shape is
+    timed in turns with the parent's kernels: parent, this, this, parent.
+    Last, e2e_in_turns. -> (K2's max_abs_err, K3's, K4's, K5's)."""
+    t0 = time.perf_counter()
     dev = eng.device
     chunk = np.full((BATCH, WIDTH), 4, dtype=np.uint8)
     n = min(BATCH, len(codes))
@@ -2090,7 +2211,7 @@ def phase_k2k3(eng, wide, codes, parent):
                 torch.cuda.synchronize()
                 errs.append(max_abs_err(got, want))
         err2 = max(err2, *errs)
-        log(f"[k2k3] minidict2_probe at ({vb}, {sc}), default, stage1 and "
+        log(f"[k2-k5] minidict2_probe at ({vb}, {sc}), default, stage1 and "
             f"want_entry modes, on the batch's {nl} lanes, then on "
             f"{odd[0].numel()} drawn from them: max_abs_err {errs}")
 
@@ -2108,8 +2229,8 @@ def phase_k2k3(eng, wide, codes, parent):
                (f"a {GRID} grid's shard, {h} reads x {Wk} runs", shard, hr,
                 rcr)]
     rng = np.random.default_rng(EDGE_READS)
-    batches += [("an edge batch", *edge_fi_batch(rng, c, w, dev))
-                for c, w in K3_EDGE]
+    edges = [edge_fi_batch(rng, c, w, dev) for c, w in K3_EDGE]
+    batches += [("an edge batch", *e) for e in edges]
     err3 = 0
     for what, d, hh, cc in batches:
         got = fi_and(d, hh, cc)
@@ -2117,12 +2238,14 @@ def phase_k2k3(eng, wide, codes, parent):
         torch.cuda.synchronize()
         e = max_abs_err((got,), (want,))
         err3 = max(err3, e)
-        log(f"[k2k3] fi_and on {what} (C32 = {d.shape[1]}, Wk = "
+        log(f"[k2-k5] fi_and on {what} (C32 = {d.shape[1]}, Wk = "
             f"{hh.shape[1]}): {int(got.ne(0).any(dim=1).sum())} of "
             f"{hh.shape[0]} reads non-empty, {int((~hh.any(dim=1)).sum())} "
             f"with no positive window, max_abs_err {e}")
-    if err2 or err3:
-        raise RuntimeError("K2 or K3 disagrees with its plain version")
+    err4, err5 = check_k4k5(eng, wide_bits, hit, csid, edges)
+    if err2 or err3 or err4 or err5:
+        raise RuntimeError("K2, K3, K4 or K5 disagrees with its plain "
+                           "version")
 
     (vb, sc), (vbr, scr) = eng._pb, eng._pb_redo
     vb1 = STAGED_BUDGETS[0][0]
@@ -2148,12 +2271,21 @@ def phase_k2k3(eng, wide, codes, parent):
         ("fi_and", f"the shard's C32 = {shard.shape[1]}, {h} reads x {Wk}",
          (k3_bytes(hr, rcr, shard.shape[1]),),
          lambda: fi_and(shard, hr, rcr)))
+    tab = eng._minscore_tab(TAU, Wk)
+    C = eng.idx.num_colors
+    for d, nc in ((eng.bits, C), (wide_bits, WIDE_C)):
+        shapes += (
+            ("tu_mask", f"C32 = {d.shape[1]}, tau {TAU}",
+             (k3_bytes(hit, csid, d.shape[1]) + tab.numel() * 4,),
+             lambda d=d, nc=nc: tu_mask(d, hit, csid, tab, nc)),
+            ("km_scores", f"C = {nc}", (k5_bytes(hit, csid, d.shape[1], nc),),
+             lambda d=d, nc=nc: km_scores(d, hit, csid, nc)))
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     for name, what, nbytes, fn in shapes:
         bound = nbytes[0] / HBM_BYTES_PER_S * 1e3
         if parent is None:
             ms, warm = kernel_times(fn, name, flush)
-            log(f"[k2k3] {name} at {what}: {ms:.4f} ms cold L2, {warm:.4f} "
+            log(f"[k2-k5] {name} at {what}: {ms:.4f} ms cold L2, {warm:.4f} "
                 f"warm; bound {bound:.4f} ms ({nbytes[0] / 1e6:.1f} MB), "
                 f"{bound / ms:.1%} of it cold")
             continue
@@ -2164,7 +2296,7 @@ def phase_k2k3(eng, wide, codes, parent):
         with using_library(parent):
             o2 = kernel_times(fn, name, flush)
         new, old = (n1[0] + n2[0]) / 2, (o1[0] + o2[0]) / 2
-        log(f"[k2k3] {name} at {what}, in turns (parent, this, this, "
+        log(f"[k2-k5] {name} at {what}, in turns (parent, this, this, "
             f"parent): this tree {n1[0]:.4f}, {n2[0]:.4f} ms cold L2 "
             f"({n1[1]:.4f}, {n2[1]:.4f} warm); the parent's {o1[0]:.4f}, "
             f"{o2[0]:.4f} ({o1[1]:.4f}, {o2[1]:.4f} warm): "
@@ -2175,9 +2307,15 @@ def phase_k2k3(eng, wide, codes, parent):
             + f"), {bound / new:.1%} of it cold (the parent "
             f"{bound / old:.1%})")
     del flush
-    log(f"[k2k3] fi_and's dynamic shared memory: {Wk * 4 * 8} B a block of "
-        f"8 reads at Wk = {Wk}, {1024 * 4 * 8} B at Wk = 1,024")
-    return err2, err3
+
+    # csrc/union.cu runs_smem: a read's u32 csids and Wk + 1 u16 ranks
+    k45 = [8 * 4 * (w + (w + 2) // 2) for w in (Wk, 1024)]
+    log(f"[k2-k5] dynamic shared memory a block of 8 reads: fi_and "
+        f"{Wk * 4 * 8} B at Wk = {Wk}, {1024 * 4 * 8} B at Wk = 1,024; "
+        f"tu_mask and km_scores {k45[0]} B, {k45[1]} B")
+    e2e_in_turns(eng, reads, parent)
+    log(f"[k2-k5] phase 10b took {time.perf_counter() - t0:.1f} s")
+    return err2, err3, err4, err5
 
 
 def phase_probes(idx, eng, reads, tmp, fi, tu):
@@ -2817,7 +2955,7 @@ def main():
                     "card, then phase 13 only (a machine with several cards)")
     ap.add_argument("--parent", metavar="DIR",
                     help="a checkout of an earlier commit (git archive into "
-                    "a directory .gitignore lists): its K2 and K3 are built "
+                    "a directory .gitignore lists): its K2-K5 are built "
                     "and timed in turns with this tree's in phase 10b")
     args = ap.parse_args()
     t_start = time.perf_counter()
@@ -2862,9 +3000,12 @@ def main():
         rows.append(wide["row"])
         err2, probe_rows = phase_probe_kernels(eng, codes)
         rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], err2)
-        err2, err3 = phase_k2k3(eng, wide["index"], codes, parent)
-        rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], err2)
-        rows[2]["max_abs_err"] = max(rows[2]["max_abs_err"], err3)
+        errs = dict(zip(("minidict2_probe", "fi_and", "tu_mask",
+                         "km_scores"),
+                        phase_k2_to_k5(eng, wide["index"], codes, reads,
+                                       parent)))
+        for r in rows:
+            r["max_abs_err"] = max(r["max_abs_err"], errs.get(r["name"], 0))
         rows += probe_rows
         probes = phase_probes(idx, eng, reads, tmp, fi, tu)
         rows += phase_mesh_kernels(eng, wide["index"], codes)

@@ -7,7 +7,11 @@ versions against fulgor_tpu, bit-exact (tolerance 0).
   composed as fulgor_tpu's query_tu_lists_packed composes it, at C = 70
   (a ragged last word) and tau down to 0.01 (every colour of a mapped read
   passes, pad bits must stay 0);
-- K5's positivity words against _pack_hits.
+- K5's positivity words against _pack_hits;
+- both at the kernels' edge shapes (C32 1, 8, 143 with a ragged C; Wk 1,
+  33, 1,024; a read scoring 1,024), with a numpy model of K4's bit-sliced
+  counts (a ripple add of run length x row word over 11 bit planes, the
+  threshold a compare from the top plane) held against the same scores.
 """
 
 import jax.numpy as jnp
@@ -142,3 +146,188 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         tu_mask(dense, hit, csid, torch.zeros(WK + 1, dtype=torch.int32,
                                               device="meta"), C)
+
+
+PLANES = 11  # K4's bit planes: counts up to 2,047 >= Wk
+TABLE_RUNS = 4  # K4 takes a read of at most 4 runs by its truth table
+
+
+def _edge_inputs(c32, wk, reads=16):
+    """reads x wk windows over 400 rows of c32 words (a third holding every
+    colour, pad bits included): runs of 1-11 windows of csids from a pool
+    of four a read (a csid recurs after other runs), broken by misses that
+    keep the run's csid or hold INVALID; reads 0-2 unmapped; read 3
+    positive in every window with csid 0 (score wk in every colour); reads
+    4-7 of one to four long runs (K4's truth-table reads)."""
+    rng = np.random.default_rng(c32 * 7 + wk)
+    rows = 400
+    dense = (rng.integers(0, 1 << 32, (rows, c32), dtype=np.uint64)
+             | rng.integers(0, 1 << 32, (rows, c32), dtype=np.uint64))
+    dense[: rows // 3] = 0xFFFFFFFF
+    pick = np.repeat(rng.integers(0, 4, reads * wk),
+                     rng.integers(1, 12, reads * wk))[: reads * wk]
+    csid = np.take_along_axis(rng.integers(0, rows, (reads, 4)),
+                              pick.reshape(reads, wk), axis=1)
+    csid = csid.astype(np.uint32)
+    hit = rng.random((reads, wk)) < 0.8
+    hit[:3] = False
+    csid[~hit & (rng.random((reads, wk)) < 0.5)] = 0xFFFFFFFF
+    hit[3] = True
+    csid[3] = 0
+    for b in range(4, 8):
+        cuts = np.sort(rng.choice(np.arange(1, wk), min(b - 4, wk - 1),
+                                  replace=False)) if wk > 1 else []
+        hit[b] = True
+        csid[b] = np.repeat(rng.integers(0, rows, len(cuts) + 1),
+                            np.diff([0, *cuts, wk]))
+    return dense.astype(np.uint32), hit, csid
+
+
+def _runs(hit, csid):
+    """The kernels' run lists: a run starts at a positive window whose
+    csid is not the window before's where that one is positive, and is as
+    long as the positive windows from its start to the next run's.
+    -> (run_cs (B, R) int64, run_len (B, R) uint32, nr (B,))."""
+    B = hit.shape[0]
+    prev = np.zeros_like(hit)
+    prev[:, 1:] = hit[:, :-1] & hit[:, 1:] & (csid[:, :-1] == csid[:, 1:])
+    starts = hit & ~prev
+    rank = np.cumsum(hit, axis=1) - hit  # positive windows before each
+    nr = starts.sum(axis=1)
+    R = max(int(nr.max()), 1)
+    run_cs = np.zeros((B, R), np.int64)
+    run_len = np.zeros((B, R), np.uint32)
+    for b in range(B):
+        s = np.flatnonzero(starts[b])
+        ranks = np.append(rank[b, s], hit[b].sum())
+        run_cs[b, : len(s)] = csid[b, s]
+        run_len[b, : len(s)] = np.diff(ranks)
+    return run_cs, run_len, nr
+
+
+def _bitsliced_counts(dense, hit, csid):
+    """K4's counting in numpy: each run adds its length to the count of
+    every colour of its row, the counts of a word's 32 colours kept as
+    PLANES bit planes and the length added by a ripple add of len x row
+    word. -> planes (B, C32, PLANES) uint32."""
+    run_cs, run_len, _nr = _runs(hit, csid)
+    planes = np.zeros((hit.shape[0], dense.shape[1], PLANES), np.uint32)
+    for r in range(run_cs.shape[1]):
+        w = dense[run_cs[:, r]]
+        carry = np.zeros_like(w)
+        for p in range(PLANES):
+            bit = ((run_len[:, r] >> p) & 1).astype(bool)[:, None]
+            add = np.where(bit, w, 0).astype(np.uint32)
+            a = planes[:, :, p].copy()
+            planes[:, :, p] = a ^ add ^ carry
+            carry = (a & add) | (carry & (a ^ add))
+    return planes
+
+
+def _planes_ge(planes, need):
+    """Per word, the colours whose bit-sliced count is at least need[b]:
+    compared from the top plane (greater where the count has a 1 and need
+    a 0 with every plane above equal)."""
+    B, C32, _ = planes.shape
+    gt = np.zeros((B, C32), np.uint32)
+    eq = np.full((B, C32), 0xFFFFFFFF, np.uint32)
+    for p in range(PLANES - 1, -1, -1):
+        one = ((need >> p) & 1).astype(bool)[:, None]
+        pl = planes[:, :, p]
+        gt = np.where(one, gt, gt | (eq & pl))
+        eq = np.where(one, eq & pl, eq & ~pl)
+    return np.where((need <= 0)[:, None], np.uint32(0xFFFFFFFF), gt | eq)
+
+
+def _table_mask(dense, hit, csid, need):
+    """K4's truth table for a read of at most TABLE_RUNS runs: T[q] says
+    whether the runs of pattern q (bit r: run r) reach need, and each
+    word is T looked up colour by colour by a multiplexer tree over the
+    runs' row words. -> (words (B, C32) uint32, which reads it serves)."""
+    run_cs, run_len, nr = _runs(hit, csid)
+    served = (nr > 0) & (nr <= TABLE_RUNS)
+    out = np.zeros((hit.shape[0], dense.shape[1]), np.uint32)
+    for b in np.flatnonzero(served):
+        q = np.arange(16)
+        s = sum(((q >> r) & 1) * int(run_len[b, r]) for r in range(nr[b]))
+        leaves = [np.uint32(0xFFFFFFFF) if t else np.uint32(0)
+                  for t in s >= need[b]]
+        x = [dense[run_cs[b, r]] if r < nr[b] else np.zeros_like(dense[0])
+             for r in range(TABLE_RUNS)]
+        level = [np.full_like(x[0], v) for v in leaves]
+        for r in range(TABLE_RUNS):  # b0 selects between leaves 2k, 2k + 1
+            level = [(x[r] & level[2 * k + 1]) | (~x[r] & level[2 * k])
+                     for k in range(len(level) // 2)]
+        out[b] = level[0]
+    return out, served
+
+
+def _spread_counts(dense, hit, csid, C):
+    """K5's counting in numpy: two colours' counts a 32-bit word as 16-bit
+    fields, a run adding len x the spread of each byte of its row (bit 2k
+    to the low field of word k, bit 2k + 1 to the high one). -> (B, C)."""
+    run_cs, run_len, _nr = _runs(hit, csid)
+    B, C32 = hit.shape[0], dense.shape[1]
+    x = np.arange(256, dtype=np.uint32)[:, None]
+    k = np.arange(4, dtype=np.uint32)[None, :]
+    spread = ((x >> (2 * k)) & 1) | (((x >> (2 * k + 1)) & 1) << 16)
+    acc = np.zeros((B, C32 * 4, 4), np.uint32)  # (byte of the row, word k)
+    for r in range(run_cs.shape[1]):
+        row = dense[run_cs[:, r]]
+        byte = (row[:, :, None] >> (8 * np.arange(4, dtype=np.uint32))) & 0xFF
+        acc += spread[byte.reshape(B, -1)] * run_len[:, r, None, None]
+    lo, hi = acc & 0xFFFF, acc >> 16
+    return np.stack([lo, hi], axis=-1).reshape(B, -1)[:, :C].astype(np.int64)
+
+
+@pytest.mark.parametrize("c32", [1, 8, 143])
+@pytest.mark.parametrize("wk", [1, 33, 1024])
+def test_edge_shapes(c32, wk):
+    """The kernels' edge shapes: C32 of one word, a mesh shard's 8 and the
+    4,546-colour index's 143, each with a ragged C = 32 C32 - 5; one
+    window, a window past a warp and the kernels' 1,024. Plain K5 against
+    threshold_union_scores_windows and _pack_hits, plain K4 at tau 0.01
+    (need 0 below 100 positive windows), 0.8 and 1.0 against
+    query_tu_lists_packed's composition; and numpy models of the kernels'
+    arithmetic against the same scores and masks: K5's packed spread
+    counts, K4's bit-sliced counts and compare, and K4's truth table on
+    the reads of at most four runs."""
+    C = 32 * c32 - 5
+    dense, hit, csid = _edge_inputs(c32, wk)
+    scores = np.asarray(J.threshold_union_scores_windows(
+        jnp.asarray(dense), jnp.asarray(hit), jnp.asarray(csid), C))
+    scores = scores.astype(np.int64)
+    t = _torch(dense, hit, csid)
+    hitw, got = km_scores(*t, C)
+    np.testing.assert_array_equal(got.numpy().astype(np.int64), scores)
+    np.testing.assert_array_equal(hitw.numpy().view(np.uint32),
+                                  np.asarray(JP._pack_hits(jnp.asarray(hit))))
+    assert not scores[:3].any() and (scores[3] == wk).all()
+    np.testing.assert_array_equal(_spread_counts(dense, hit, csid, C), scores)
+
+    planes = _bitsliced_counts(dense, hit, csid)
+    weights = (1 << np.arange(PLANES, dtype=np.int64))
+    unpacked = (planes[:, :, None, :] >> np.arange(32, dtype=np.uint32)[
+        None, None, :, None]) & 1
+    model = (unpacked.astype(np.int64) * weights).sum(axis=3)
+    np.testing.assert_array_equal(model.reshape(len(hit), -1)[:, :C], scores)
+
+    npos = hit.sum(axis=1)
+    pad = np.zeros((len(hit), 32 * c32), dtype=bool)
+    colour = np.array([(1 << min(max(C - 32 * j, 0), 32)) - 1
+                       for j in range(c32)], np.uint64).astype(np.uint32)
+    for tau in (0.01, 0.8, 1.0):
+        tab = _table(tau, wk)
+        need = tab[npos].astype(np.int64)
+        pad[:, :C] = (scores >= need[:, None]) & (npos > 0)[:, None]
+        want = np.asarray(J.pack_bool_bits(jnp.asarray(pad)))
+        got = tu_mask(*t, torch.from_numpy(tab), C).numpy().view(np.uint32)
+        np.testing.assert_array_equal(got, want)
+        ge = _planes_ge(planes, need) & colour
+        np.testing.assert_array_equal(
+            np.where((npos > 0)[:, None], ge, np.uint32(0)), want)
+        table, served = _table_mask(dense, hit, csid, need)
+        assert served[3:8].all()
+        np.testing.assert_array_equal((table & colour)[served], want[served])
+        if tau == 0.01 and wk < 100:  # need 0: every colour below C
+            assert (want[npos > 0] == colour).all()
