@@ -25,14 +25,20 @@ last line, which is printed only when every phase passed:
               against its plain PyTorch version, bit for bit (tolerance 0),
               K4 at tau 0.8 and 1.0 (where it must also equal K3), K6 at run
               budgets 2, 16, 32, Wk, 2 Wk and the engine's two, K7 also
-              against K2 at the redo budget on every window K2 decides, K8
+              against K2 at the redo budget on every window K2 decides and
+              on seeded edge batches (k 15 and 31, W 32, 160 and 1,024, 777
+              reads, 16 of them all N; k = 15 on a table of the first 4 Mbp
+              of the unitig text's 15-mers), K8
               also against the host packer's bytes, with
               times (kernels: median device time per launch from
               torch.profiler, with L2 flushed before each launch and warm;
               plain versions: CUDA events) and bounds; then K4 and K5 on
               4,096 of the batch's reads against a seeded random dense
               matrix of 4,546 colours (the reference's Salmonella width);
-              query_runs_tu_packed against its plain composition.
+              query_runs_tu_packed against its plain composition. K7 is
+              also timed against a table of the first 2 Mbp of the text's
+              k-mers, which L2 holds, on reads cut from that text; with
+              --parent it is timed in turns with DIR's K7.
   5. e2e      on the card over every read, each path with the launch counts
               reset just before each timed run and checked just after:
               FI pseudoalign_file (a warm-up, three timed runs to /dev/null,
@@ -47,7 +53,8 @@ last line, which is printed only when every phase passed:
               a file, and a run to a file with the run budget forced to 2,
               which must be byte-identical to the first).
   6. cuckoo   the same tools on a QueryEngine over the cuckoo index (FI: a
-              warm-up, three timed runs, a profiled run; TU(0.8): three
+              warm-up, three timed runs, with --parent four in turns with
+              DIR's kernels, a profiled run; TU(0.8): three
               timed runs; then each tool once to a file): every file must
               equal the mini engine's (pseudoalign records sorted by read
               id, kmer-matches and kmer-conservation byte for byte).
@@ -98,7 +105,7 @@ last line, which is printed only when every phase passed:
               gaps included). End to end, FI and TU(0.8) under the staged probe
               (FULGOR_PROBE_BUDGET=2,8,4,16, a new engine) and the
               anchored one (pipeline.ANCHORED_PROBE on, restored after):
-              each a warm-up, three timed passes (the staged ones in turns
+              each a warm-up, two timed passes (the staged ones in turns
               with one-pass passes of the same tool) and a profiled pass to
               a file, which must hold phase 5's FI or phase 6's TU records.
  10b. k2-k5  K2, K3, K4 and K5 as redesigned for the card, bit for bit
@@ -130,8 +137,17 @@ last line, which is printed only when every phase passed:
               shard of the 512-colour dense at P in {1, 2, 4} and of the
               4,546-colour one at P = 2; K13 pack_hits on K2's hits and
               csids, with and without narrowing; query_conservation_packed
-              against its plain composition; K12 timed at a (2, 2) grid's
-              shape (one data row's reads, shard 0 of 2), K13 at one cell's.
+              against its plain composition; K12 also on seeded edge
+              batches (C32 x R of 1 x 1, 1 x 1,024, 8 x 33, 8 x 130, 72 x
+              130 and 143 x 1,024, a ragged C; reads of no valid run, of
+              1-4 and more, scattered among INVALID slots, a csid that
+              recurs; counts summing to 1,024 and past 2,047 and 65,535,
+              K6's int16 and int32 ones, negative ones; npos 0 and past the
+              table), mask mode at tau 0.01, 0.8 and 1.0 and u16 mode; the
+              reads its truth table takes logged. K12 timed at a (2, 2)
+              grid's shape (one data row's reads, shard 0 of 2) in mask and
+              u16 mode, with --parent in turns with DIR's K12 and also on
+              the 4,546-colour index's shard 0 of 2; K13 at one cell's.
               (b) QueryEngine on a (2, 2) grid of four cells on this card
               and with use_mesh=True (a (1, 1) grid): FI, TU(0.8),
               --deduplicate, kmer-matches and kmer-conservation once each
@@ -142,7 +158,9 @@ last line, which is printed only when every phase passed:
               (their redo runs the mesh's step, never K4 or K5); FI and
               TU(0.8) on (2, 2) also a warm-up, three timed passes in
               turns with one-device passes of the same tool, and a
-              profiled pass; the array API's FI and TU(0.8) on the (2, 2)
+              profiled pass; with --parent TU(0.8) and kmer-matches on
+              (2, 2) four passes each in turns with DIR's kernels; the
+              array API's FI and TU(0.8) on the (2, 2)
               grid, read for read equal to phase 8's.
               (c) the 4,546-colour index on the (2, 2) grid: runs fetch
               FI, dense FI (K3 on 72-word shards) and TU(0.8) (K12), each
@@ -201,7 +219,9 @@ import time
 import numpy as np
 import torch
 
-from fulgor_tpu_torch.build.builder import build_index, build_kmer_dict
+from fulgor_tpu_torch.build.builder import (
+    build_index, build_kmer_dict, unitig_kmers,
+)
 from fulgor_tpu_torch.constants import INVALID_U32
 from fulgor_tpu_torch.core.kmers import unpack2
 from fulgor_tpu_torch.index import Index
@@ -400,7 +420,9 @@ WIDE_PASSES, FORCED_T = 3, 3
 # (RA, RU), None for anchor_budget/reprobe_budget; timed passes a path
 STAGED_BUDGETS = ((2, 8, 4, 16), (1, 8, 4, 2))
 ANCHORED_BUDGETS = ((None, None), (4, 2))
-PROBE_PASSES = 3
+# (cut from three to two: the anchored passes take 10-14 s each on a slow
+# host, and the whole run must stay inside its clock)
+PROBE_PASSES = 2
 # phase 12: the v1 lookup's candidate budgets (4, its default, is timed),
 # and its long reads cut from the unitig text
 V1_CANDIDATES = (4, 8)
@@ -412,6 +434,17 @@ V1_LONG_READS, V1_LONG_LEN = 64, 3000
 K2_EDGE_BUDGETS = ((0, 2), (20, 4))
 K3_EDGE = ((1, 1), (1, 1024), (143, 1), (143, 1024), (8, 33), (17, 130))
 EDGE_READS = 777
+# K12's seeded edge batches (C32, R) of EDGE_READS reads, with K6's int16
+# counts and with int32 ones, and the length of their npos table; K7's
+# edge shapes (k, W) of EDGE_READS reads, k = 15 on a table of the
+# k-mers of the unitigs in the first K7_EDGE_BASES bases of the text; K7
+# timed against a table of the first K7_L2_BASES bases' k-mers, which L2
+# holds
+K12_EDGE = ((1, 1), (1, 1024), (8, 33), (8, 130), (72, 130), (143, 1024))
+K12_EDGE_NPOS = 70_000
+K7_EDGE = ((31, 32), (31, 160), (31, 1024), (15, 32), (15, 160), (15, 1024))
+K7_EDGE_BASES = 4_000_000
+K7_L2_BASES = 2_000_000
 # K4's edge thresholds (0.01: need 0 up to npos 99, every colour below C
 # passes), and the colours a K4/K5 edge batch leaves out of its last word;
 # the profiled TU and kmer-matches passes a tool may take
@@ -631,17 +664,19 @@ def phase_build():
 def parent_library(parent):
     """The kernel library of another checkout of this repository (--parent:
     an earlier commit unpacked with git archive), built from its csrc/
-    into its own _build/ and bound as this one: its K2-K5 are timed in
-    turns with this tree's in phase 10b, and its K4 and K5 drive TU and
-    kmer-matches passes in turns with this tree's. The C entry points of
-    both trees must take the same arguments."""
+    into its own _build/ and bound as this one: its K2-K5, K7 and K12 are
+    timed in turns with this tree's (in_turns), and its kernels drive TU,
+    kmer-matches, the mesh's TU and kmer-matches and cuckoo FI passes in
+    turns with this tree's (passes_in_turns). The C entry points of both
+    trees must take the same arguments."""
     pkg = os.path.join(os.path.abspath(parent), "fulgor_tpu_torch")
     lib = os.path.join(pkg, "_build", "libfulgor_kernels.so")
     t0 = time.perf_counter()
     text = kernels.build(os.path.join(pkg, "csrc"), lib)
     log(f"[build] the parent's kernels ({parent}) built in "
-        f"{time.perf_counter() - t0:.2f} s; its K2-K5:")
-    log_resources("build", text, ("probe.cu", "intersect.cu", "union.cu"))
+        f"{time.perf_counter() - t0:.2f} s; its K2-K5, K7 and K12:")
+    log_resources("build", text, ("probe.cu", "intersect.cu", "union.cu",
+                                  "cuckoo.cu"))
     return kernels.bind(ct.CDLL(lib))
 
 
@@ -703,6 +738,59 @@ def phase_cuckoo_index(idx, tmp):
     return cidx
 
 
+def in_turns(tag, name, what, nbytes, fn, flush, parent):
+    """Kernel `name` at `what` timed cold L2 and warm (kernel_times) beside
+    its byte bound; with `parent` (a kernel library, --parent) in turns
+    with the parent's kernel: parent, this, this, parent. nbytes: (bytes,)
+    or (bytes, bytes without text and pointer rows). -> this tree's (cold,
+    warm) ms, the mean of its two turns with a parent."""
+    bound = nbytes[0] / HBM_BYTES_PER_S * 1e3
+    if parent is None:
+        ms, warm = kernel_times(fn, name, flush)
+        log(f"[{tag}] {name} at {what}: {ms:.4f} ms cold L2, {warm:.4f} "
+            f"warm; bound {bound:.4f} ms ({nbytes[0] / 1e6:.1f} MB), "
+            f"{bound / ms:.1%} of it cold")
+        return ms, warm
+    with using_library(parent):
+        o1 = kernel_times(fn, name, flush)
+    n1 = kernel_times(fn, name, flush)
+    n2 = kernel_times(fn, name, flush)
+    with using_library(parent):
+        o2 = kernel_times(fn, name, flush)
+    new, old = (n1[0] + n2[0]) / 2, (o1[0] + o2[0]) / 2
+    log(f"[{tag}] {name} at {what}, in turns (parent, this, this, "
+        f"parent): this tree {n1[0]:.4f}, {n2[0]:.4f} ms cold L2 "
+        f"({n1[1]:.4f}, {n2[1]:.4f} warm); the parent's {o1[0]:.4f}, "
+        f"{o2[0]:.4f} ({o1[1]:.4f}, {o2[1]:.4f} warm): "
+        f"{old / new:.2f}x; "
+        f"bound {bound:.4f} ms ({nbytes[0] / 1e6:.1f} MB"
+        + (f"; {nbytes[1] / 1e6:.1f} MB without text and pointer rows"
+           if len(nbytes) > 1 else "")
+        + f"), {bound / new:.1%} of it cold (the parent "
+        f"{bound / old:.1%})")
+    return new, (n1[1] + n2[1]) / 2
+
+
+def passes_in_turns(tag, path, fn, parent):
+    """With `parent`, one timed pass of fn (timed_passes, its launches
+    checked against PATH_KERNELS[path]) on the parent's kernels and on
+    this tree's in turns: parent, this, this, parent; logs the two
+    medians and their ratio. No reads/s is claimed from them: the card
+    idles through most of a pass."""
+    if parent is None:
+        return
+    rates = {"this": [], "parent": []}
+    for who in ("parent", "this", "this", "parent"):
+        with (using_library(parent) if who == "parent"
+              else contextlib.nullcontext()):
+            rates[who] += timed_passes(path, fn, 1)[0]
+    new = statistics.median(rates["this"])
+    old = statistics.median(rates["parent"])
+    log(f"[{tag}] {path} passes in turns (parent, this, this, parent): this "
+        f"tree {rates['this']}, the parent's {rates['parent']} reads/s: "
+        f"{new / old:.3f}x")
+
+
 def kernel_times(fn, name, flush):
     """(cold-L2 ms, warm ms) of one launch of kernel `name`: the first with
     `flush` zeroed before every launch, as on the main path, where each
@@ -712,7 +800,7 @@ def kernel_times(fn, name, flush):
             kernel_ms(fn, name, REPS_KERNEL))
 
 
-def phase_kernels(idx, eng, ceng, codes):
+def phase_kernels(idx, eng, ceng, codes, parent):
     dev = eng.device
     chunk = np.full((BATCH, WIDTH), 4, dtype=np.uint8)
     n = min(BATCH, len(codes))
@@ -869,7 +957,8 @@ def phase_kernels(idx, eng, ceng, codes):
     rows.append(phase_runs(eng, hit, csid, flush))
     rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"],
                                   phase_runs_tu(eng, c2, bd))
-    rows += phase_cuckoo_pack(eng, ceng, chunk, c2, bd, prep, flush)
+    rows += phase_cuckoo_pack(eng, ceng, chunk, c2, bd, prep, flush,
+                              parent)
     del flush
 
     for r in rows:
@@ -915,11 +1004,92 @@ def finish_row(r, phase):
         raise RuntimeError(f"{r['name']} disagrees with its plain version")
 
 
-def phase_cuckoo_pack(eng, ceng, chunk, c2, bd, prep, flush):
+def text_table(cidx, bases, k):
+    """A cuckoo table over the distinct canonical k-mers of the unitigs in
+    the first `bases` bases of the index's text, each valued by its
+    unitig id. -> (table (nb, 4) u32, that text's codes)."""
+    offs = cidx.unitig_offs
+    n = int(np.searchsorted(offs, bases, side="right")) - 1
+    codes = unpack2(cidx.unitig_seq, int(offs[n]))
+    keys, uids = unitig_kmers(codes, offs[: n + 1], k)
+    keys, first = np.unique(keys, return_index=True)
+    return native.cuckoo_build(keys, uids[first]), codes
+
+
+def k7_in_l2(cidx, dev, flush):
+    """K7 as phase 4 runs it (BATCH reads of READ_LEN bases at W = WIDTH,
+    k = K) but on reads cut from the first K7_L2_BASES bases of the text
+    and a table of that text's k-mers that L2 holds: the same kernel and
+    windows, its row gathers served by L2 where warm rather than by
+    random reads of device memory. Logs its rows read and its cold and
+    warm ms."""
+    table, codes = text_table(cidx, K7_L2_BASES, K)
+    t = torch.from_numpy(table.view(np.int32)).to(dev)
+    rng = np.random.default_rng(EDGE_READS + K)
+    chunk = np.full((BATCH, WIDTH), 4, dtype=np.uint8)
+    starts = rng.integers(0, len(codes) - READ_LEN, BATCH)
+    chunk[:, :READ_LEN] = codes[starts[:, None] + np.arange(READ_LEN)]
+    c2, bd = (torch.from_numpy(a).to(dev) for a in pack_reads_host(chunk))
+    rows = cuckoo_row_gathers(t, c2, bd, width=WIDTH, k=K)
+    ms, warm = kernel_times(lambda: cuckoo_lookup(t, c2, bd, width=WIDTH,
+                                                  k=K), "cuckoo_lookup", flush)
+    log(f"[kernels] cuckoo_lookup with its table in L2: a table of "
+        f"{table.nbytes / 1e6:.1f} MB (the k-mers of {len(codes)} bases of "
+        f"the text; L2 holds 50 MB), {BATCH} reads cut from that text: "
+        f"{rows} table rows read, {ms:.4f} ms cold L2, {warm:.4f} warm")
+
+
+def edge_reads(rng, codes, W):
+    """EDGE_READS reads of W bases: 16 all N, then three in four cut from
+    the text `codes` (every fifth of those with an N), the rest random."""
+    chunk = rng.integers(0, 4, (EDGE_READS, W)).astype(np.uint8)
+    chunk[:16] = 4
+    for b in range(16, EDGE_READS):
+        if b % 4:
+            p = int(rng.integers(0, len(codes) - W))
+            chunk[b] = codes[p: p + W]
+            if b % 5 == 0:
+                chunk[b, rng.integers(0, W)] = 4
+    return chunk
+
+
+def check_k7_edges(cidx, table31, dev):
+    """K7 at K7_EDGE's shapes on EDGE_READS reads (not a multiple of a
+    block's reads), 16 of them all N, bit for bit against its plain
+    version: k = 31 on the index's table, k = 15 on text_table's.
+    -> the largest max_abs_err."""
+    t0 = time.perf_counter()
+    table15, codes = text_table(cidx, K7_EDGE_BASES, 15)
+    tables = {31: table31,
+              15: torch.from_numpy(table15.view(np.int32)).to(dev)}
+    log(f"[kernels] cuckoo_lookup's edge batches: a k = 15 table of "
+        f"{len(table15)} buckets over {len(codes)} bases of the text, built "
+        f"in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(EDGE_READS + 7)
+    err = 0
+    for k, W in K7_EDGE:
+        c2, bd = (torch.from_numpy(a).to(dev)
+                  for a in pack_reads_host(edge_reads(rng, codes, W)))
+        got = cuckoo_lookup(tables[k], c2, bd, width=W, k=k)
+        want = cuckoo_lookup_plain(tables[k], c2, bd, width=W, k=k)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        err = max(err, e)
+        log(f"[kernels] cuckoo_lookup on an edge batch (k = {k}, W = {W}): "
+            f"{int(got[0].sum())} hits of {got[0].numel()} windows, "
+            f"{int(got[0][:16].sum())} in the all-N reads, max_abs_err {e}")
+        if got[0][:16].any():
+            raise RuntimeError("cuckoo_lookup hit in an all-N read")
+    return err
+
+
+def phase_cuckoo_pack(eng, ceng, chunk, c2, bd, prep, flush, parent):
     """K7 on the kernels batch against its plain version, and against K2
-    at the redo budget on every window K2 decides; K8 on the same chunk's
-    codes against its plain version and the host packer's bytes.
-    -> the two kernels' rows."""
+    at the redo budget on every window K2 decides, and on K7_EDGE's edge
+    batches (check_k7_edges); timed, with `parent` in turns with the
+    parent's K7, and against a table that L2 holds (k7_in_l2). K8 on the
+    same chunk's codes against its plain version and the host packer's
+    bytes. -> the two kernels' rows."""
     table = ceng.table
     Wk = WIDTH - K + 1
     lanes = BATCH * Wk
@@ -948,9 +1118,13 @@ def phase_cuckoo_pack(eng, ceng, chunk, c2, bd, prep, flush):
         f"{(io7 + 16 * rows_read) / HBM_BYTES_PER_S * 1e3:.4f} ms; counted "
         f"as 32-byte sectors {(io7 + 32 * rows_read) / 1e6:.1f} MB, "
         f"{(io7 + 32 * rows_read) / HBM_BYTES_PER_S * 1e3:.4f} ms")
-    ms7, warm7 = kernel_times(
-        lambda: cuckoo_lookup(table, c2, bd, width=WIDTH, k=K),
-        "cuckoo_lookup", flush)
+    err7 = max(err7, check_k7_edges(ceng.idx, table, eng.device))
+    ms7, warm7 = in_turns(
+        "kernels", "cuckoo_lookup", f"phase 4's batch ({lanes} windows)",
+        (io7 + 16 * rows_read,),
+        lambda: cuckoo_lookup(table, c2, bd, width=WIDTH, k=K), flush,
+        parent)
+    k7_in_l2(ceng.idx, eng.device, flush)
     row7 = dict(
         name="cuckoo_lookup", source="fulgor_tpu_torch/csrc/cuckoo.cu",
         replaces="fulgor_tpu/ops/lookup.py:186", max_abs_err=err7, ms=ms7,
@@ -1461,9 +1635,10 @@ def phase_mirror(idx, codes, names, tmp, seed, fi, tu, km, kc, dedup):
     return {q: (w[2], w[5]) for q, w in zip(check, wants)}
 
 
-def phase_cuckoo(ceng, reads, tmp, fi, tu, km, kc, dedup):
+def phase_cuckoo(ceng, reads, tmp, fi, tu, km, kc, dedup, parent):
     """Every tool on the cuckoo index over every read: FI (a warm-up,
-    CUCKOO_PASSES timed runs, a profiled run, a run to a file), TU(TAU)
+    CUCKOO_PASSES timed runs, with `parent` four runs in turns with the
+    parent's kernels, a profiled run, a run to a file), TU(TAU)
     (CUCKOO_PASSES timed runs, a run to a file), kmer-matches,
     kmer-conservation and --deduplicate (a run to a file each). Each file
     must equal the mini engine's: pseudoalign records sorted by read id,
@@ -1474,6 +1649,7 @@ def phase_cuckoo(ceng, reads, tmp, fi, tu, km, kc, dedup):
 
     psa()  # warm-up
     rates_fi, _st, launches = timed_passes("cuckoo_fi", psa, CUCKOO_PASSES)
+    passes_in_turns("cuckoo", "cuckoo_fi", psa, parent)
     profiled_pass("cuckoo_fi", psa)
     rates_tu, _st, _l = timed_passes(
         "cuckoo_tu", lambda: psa(threshold=TAU), CUCKOO_PASSES)
@@ -2078,6 +2254,96 @@ def edge_fi_batch(rng, C32, Wk, dev):
             torch.from_numpy(csid.view(np.int32)).to(dev))
 
 
+def edge_runs_batch(rng, C32, R):
+    """A seeded K12 edge batch of EDGE_READS reads x R run slots over 4,096
+    random rows (a third all-ones), as the mesh hands K12 its runs: each
+    read's valid runs scattered among INVALID slots, their csids from a
+    pool of four a read (a csid recurs). Reads 0-15 hold no valid run,
+    16-47 one to four (the truth table's), the rest any number up to R.
+    Counts by read mod 4: 1-11 (as K6's lengths), summing to 1,024, 100 to
+    3,000 each (totals past 2,047), any u16 (totals past 65,535); the
+    int32 counts equal them but in every 8th read from 48 on, which holds
+    counts in [-2^30, 2^30) (negative, and sums that wrap). npos: each
+    read's total of u16 counts up to K12_EDGE_NPOS, but 0 for reads 0-7,
+    1-130 for 8-15 (positive windows and no valid run) and past the table
+    (K12_EDGE_NPOS + 1 + 0..3) in every 16th read from 16 on. -> numpy
+    (dense (4096, C32) u32, run_csid (B, R) u32, counts int16, counts
+    int32, npos int32)."""
+    S, B = 4096, EDGE_READS
+    dense = (rng.integers(0, 1 << 32, (S, C32), dtype=np.uint64)
+             | rng.integers(0, 1 << 32, (S, C32), dtype=np.uint64))
+    dense[: S // 3] = 0xFFFFFFFF
+    nvalid = rng.integers(0, R + 1, B)
+    nvalid[:16] = 0
+    nvalid[16:48] = np.minimum(rng.integers(1, 5, 32), R)
+    rc = np.full((B, R), INVALID_U32, np.uint32)
+    c16 = np.zeros((B, R), np.uint16)
+    pools = rng.integers(0, S, (B, 4))
+    for b in range(B):
+        n = int(nvalid[b])
+        slots = rng.choice(R, n, replace=False)
+        rc[b, slots] = pools[b, rng.integers(0, 4, n)]
+        kind = b % 4
+        if kind == 0:
+            cnt = rng.integers(1, 12, n)
+        elif kind == 1 and n:
+            cuts = np.sort(rng.choice(np.arange(1, 1024), n - 1,
+                                      replace=False))
+            cnt = np.diff([0, *cuts, 1024])
+        elif kind == 2:
+            cnt = rng.integers(100, 3001, n)
+        else:
+            cnt = rng.integers(0, 1 << 16, n)
+        c16[b, slots] = cnt
+    c32 = c16.astype(np.int32)
+    odd = np.arange(B) % 8 == 7
+    odd[:48] = False
+    big = rng.integers(-(1 << 30), 1 << 30, (int(odd.sum()), R))
+    c32[odd] = np.where(rc[odd] != INVALID_U32, big, 0)
+    npos = np.minimum(c16.astype(np.int64).sum(axis=1), K12_EDGE_NPOS)
+    npos[:8] = 0
+    npos[8:16] = rng.integers(1, 131, 8)
+    npos[16::16] = K12_EDGE_NPOS + 1 + rng.integers(0, 4, len(npos[16::16]))
+    return (dense.astype(np.uint32), rc, c16.view(np.int16), c32,
+            npos.astype(np.int32))
+
+
+def check_k12_edges(dev):
+    """K12 on K12_EDGE's seeded edge batches, bit for bit against its plain
+    versions: with K6's int16 counts and with int32 ones, mask mode at
+    K4_EDGE_TAUS (the whole row's colours and a ragged C = 32 C32 - 5) and
+    u16 mode. -> the largest max_abs_err."""
+    rng = np.random.default_rng(EDGE_READS + 12)
+    err = 0
+    for C32, R in K12_EDGE:
+        dense, rc, c16, c32, npos = (
+            torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
+            .to(dev) for a in edge_runs_batch(rng, C32, R))
+        C = 32 * C32 - EDGE_RAGGED if C32 > 1 else 32
+        errs = []
+        for cnt in (c16, c32):
+            for tau in K4_EDGE_TAUS:
+                tab = torch.from_numpy(
+                    (np.arange(K12_EDGE_NPOS + 1, dtype=np.float64) * tau)
+                    .astype(np.int64).astype(np.int32)).to(dev)
+                got = runs_mask(dense, rc, cnt, npos, tab, C)
+                want = runs_mask_plain(dense, rc, cnt, npos, tab, C)
+                torch.cuda.synchronize()
+                errs.append(max_abs_err((got,), (want,)))
+            got = runs_scores(dense, rc, cnt, C)
+            want = runs_scores_plain(dense, rc, cnt, C).to(torch.int16)
+            torch.cuda.synchronize()
+            errs.append(max_abs_err((got,), (want,)))
+        err = max(err, *errs)
+        nv = (rc != -1).sum(dim=1)
+        log(f"[mesh] runs_scores on an edge batch (C32 = {C32}, C = {C}, R "
+            f"= {R}, {int(nv.sum())} valid runs, {int((nv == 0).sum())} reads "
+            f"with none, {int(((nv > 0) & (nv <= K4_TABLE_RUNS)).sum())} with "
+            f"1-{K4_TABLE_RUNS}): int16 counts, mask at tau "
+            f"{K4_EDGE_TAUS} and u16, then int32 counts: max_abs_err {errs}")
+    return err
+
+
 def k5_bytes(hit, csid, C32, C) -> int:
     """K5's bytes: hit and csid read once, one C32-word row a distinct
     csid of the positive windows, C int16 scores and the hit words written
@@ -2136,17 +2402,7 @@ def e2e_in_turns(eng, reads, parent):
         ("km", "km_scores", lambda: eng.kmer_matches_file(reads,
                                                           os.devnull)))
     for path, name, fn in tools:
-        if parent is not None:
-            rates = {"this": [], "parent": []}
-            for who in ("parent", "this", "this", "parent"):
-                with (using_library(parent) if who == "parent"
-                      else contextlib.nullcontext()):
-                    rates[who] += timed_passes(path, fn, 1)[0]
-            new = statistics.median(rates["this"])
-            old = statistics.median(rates["parent"])
-            log(f"[k2-k5] {path} passes in turns (parent, this, this, "
-                f"parent): this tree {rates['this']}, the parent's "
-                f"{rates['parent']} reads/s: {new / old:.3f}x")
+        passes_in_turns("k2-k5", path, fn, parent)
         # the profiler may drop a pass's launches (kernel_ms): up to
         # E2E_PROFILES passes, until one holds every launch of `name`
         for attempt in range(1, E2E_PROFILES + 1):
@@ -2282,30 +2538,7 @@ def phase_k2_to_k5(eng, wide, codes, reads, parent):
              lambda d=d, nc=nc: km_scores(d, hit, csid, nc)))
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     for name, what, nbytes, fn in shapes:
-        bound = nbytes[0] / HBM_BYTES_PER_S * 1e3
-        if parent is None:
-            ms, warm = kernel_times(fn, name, flush)
-            log(f"[k2-k5] {name} at {what}: {ms:.4f} ms cold L2, {warm:.4f} "
-                f"warm; bound {bound:.4f} ms ({nbytes[0] / 1e6:.1f} MB), "
-                f"{bound / ms:.1%} of it cold")
-            continue
-        with using_library(parent):
-            o1 = kernel_times(fn, name, flush)
-        n1 = kernel_times(fn, name, flush)
-        n2 = kernel_times(fn, name, flush)
-        with using_library(parent):
-            o2 = kernel_times(fn, name, flush)
-        new, old = (n1[0] + n2[0]) / 2, (o1[0] + o2[0]) / 2
-        log(f"[k2-k5] {name} at {what}, in turns (parent, this, this, "
-            f"parent): this tree {n1[0]:.4f}, {n2[0]:.4f} ms cold L2 "
-            f"({n1[1]:.4f}, {n2[1]:.4f} warm); the parent's {o1[0]:.4f}, "
-            f"{o2[0]:.4f} ({o1[1]:.4f}, {o2[1]:.4f} warm): "
-            f"{old / new:.2f}x; "
-            f"bound {bound:.4f} ms ({nbytes[0] / 1e6:.1f} MB"
-            + (f"; {nbytes[1] / 1e6:.1f} MB without text and pointer rows"
-               if len(nbytes) > 1 else "")
-            + f"), {bound / new:.1%} of it cold (the parent "
-            f"{bound / old:.1%})")
+        in_turns("k2-k5", name, what, nbytes, fn, flush, parent)
     del flush
 
     # csrc/union.cu runs_smem: a read's u32 csids and Wk + 1 u16 ranks
@@ -2383,16 +2616,19 @@ def phase_probes(idx, eng, reads, tmp, fi, tu):
     return out
 
 
-def phase_mesh_kernels(eng, wide, codes):
+def phase_mesh_kernels(eng, wide, codes, parent):
     """Phase 11 (a) on phase 4's batch, bit for bit (tolerance 0): K12 over
     K6's runs at R = Wk in mask (tau TAU) and u16 mode on every colour shard
-    of the 512-colour dense at MESH_P and of the wide index's at P = 2; K13
-    with and without narrowing, on the batch and on one cell's reads;
-    query_conservation_packed (K1 -> K2 -> K13) against its plain
-    composition, small_csid on and off. K12 timed at the (2, 2) grid's
-    shape (a data row's B / 2 reads, shard 0 of 2, mask mode), K13 at one
-    cell's (B / 4 reads, no narrowing, as the mesh's kmer-matches).
-    -> (K12's row, K13's row)."""
+    of the 512-colour dense at MESH_P and of the wide index's at P = 2, and
+    on K12_EDGE's seeded edge batches (check_k12_edges); the reads its
+    truth table takes logged. K13 with and without narrowing, on the batch
+    and on one cell's reads; query_conservation_packed (K1 -> K2 -> K13)
+    against its plain composition, small_csid on and off. K12 timed at the
+    (2, 2) grid's shape (a data row's B / 2 reads, shard 0 of 2) in mask
+    and u16 mode, with `parent` in turns with the parent's K12 and also on
+    the wide index's shard 0 of 2; K13 at one cell's shape (B / 4 reads,
+    no narrowing, as the mesh's kmer-matches). -> (K12's row, K13's
+    row)."""
     dev = eng.device
     chunk = np.full((BATCH, WIDTH), 4, dtype=np.uint8)
     n = min(BATCH, len(codes))
@@ -2430,34 +2666,55 @@ def phase_mesh_kernels(eng, wide, codes):
                     f"{int(got[0].ne(0).any(dim=1).sum())} of {BATCH} reads "
                     f"pass tau {TAU}, max score {int(got[1].max())}, "
                     f"max_abs_err {e}")
-                if what == "512" and P == 2 and q == 0:
-                    shard0 = shard
+                if P == 2 and q == 0:
+                    if what == "512":
+                        shard0 = shard
+                    else:
+                        wide_shard = shard
+    err12 = max(err12, check_k12_edges(dev))
+    nv = (rc != -1).sum(dim=1)
+    table = (npos > 0) & (npos < tab.numel()) & (nv <= K4_TABLE_RUNS)
+    log(f"[mesh] runs_scores (mask mode) takes {int(table.sum())} of phase "
+        f"4's {BATCH} reads by its truth table (1-{K4_TABLE_RUNS} valid runs "
+        f"or none, positive windows within the table), "
+        f"{int(((npos > 0) & ~table).sum())} bit-sliced, "
+        f"{int((npos == 0).sum())} with no positive window")
     # the (2, 2) grid's K12 launch: a data row's reads on shard 0 of 2
     h = BATCH // 2
     rcr, rlr, npr = rc[:h].contiguous(), rl[:h].contiguous(), npos[:h]
     w = shard0.shape[1]
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    ms, warm = kernel_times(lambda: runs_mask(shard0, rcr, rlr, npr, tab,
-                                              32 * w), "runs_scores", flush)
-    ms16, warm16 = kernel_times(lambda: runs_scores(shard0, rcr, rlr, 32 * w),
-                                "runs_scores", flush)
     valid = rcr != -1
     distinct = torch.unique(rcr[valid]).numel()
     runs_h = int(valid.sum())
-    log(f"[mesh] runs_scores at the (2, 2) grid's shape ({h} reads x R = "
-        f"{Wk}, {runs_h} runs, {w}-word shard): u16 mode {ms16:.4f} ms cold "
-        f"L2, {warm16:.4f} warm; the batch holds {nruns} runs")
+    # every run csid slot scanned (a valid run may stand in any slot), the
+    # u16 count of each valid run, one row a distinct csid; mask mode: npos,
+    # the table and the mask words written, u16 mode: 2 B a colour written
+    slots = h * Wk * 4 + runs_h * 2
+    bytes_mask = slots + distinct * w * 4 + h * 4 + (Wk + 1) * 4 + h * w * 4
+    bytes_u16 = slots + distinct * w * 4 + h * 32 * w * 2
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    ms, warm = in_turns(
+        "mesh", "runs_scores", f"the (2, 2) grid's shape, mask mode ({h} "
+        f"reads x R = {Wk}, {runs_h} runs, {w}-word shard)", (bytes_mask,),
+        lambda: runs_mask(shard0, rcr, rlr, npr, tab, 32 * w), flush, parent)
+    in_turns("mesh", "runs_scores", "the same, u16 mode", (bytes_u16,),
+             lambda: runs_scores(shard0, rcr, rlr, 32 * w), flush, parent)
+    if parent is not None:  # the 4,546-colour index's shard 0 of 2
+        ww = wide_shard.shape[1]
+        in_turns("mesh", "runs_scores", f"{WIDE_C} colours' shard 0 of 2, "
+                 f"mask mode ({ww} words)",
+                 (slots + distinct * ww * 4 + h * 4 + (Wk + 1) * 4
+                  + h * ww * 4,),
+                 lambda: runs_mask(wide_shard, rcr, rlr, npr, tab, 32 * ww),
+                 flush, parent)
+    log(f"[mesh] the batch holds {nruns} runs")
     row12 = dict(
         name="runs_scores", source="fulgor_tpu_torch/csrc/union.cu",
         replaces="fulgor_tpu/ops/intersect.py:264", max_abs_err=err12,
         ms=ms, warm_ms=warm,
         plain_ms=time_ms(lambda: runs_mask_plain(shard0, rcr, rlr, npr, tab,
                                                  32 * w), REPS_PLAIN),
-        # every run csid slot scanned (a valid run may stand in any slot),
-        # the u16 count of each valid run, npos, one row a distinct csid,
-        # the table, the mask written; a multiply-add a run and colour
-        bytes=h * Wk * 4 + runs_h * 2 + h * 4 + distinct * w * 4
-        + (Wk + 1) * 4 + h * w * 4, ops=runs_h * 32 * w + h * 32 * w)
+        bytes=bytes_mask, ops=runs_h * 32 * w + h * 32 * w)
 
     # K13
     err13 = 0
@@ -2534,9 +2791,11 @@ def mesh_pass(path, fn, eng, num_reads):
 
 
 def phase_mesh(eng, cidx, wide, reads, codes, tmp, fi, tu, km, kc, dedup,
-               array, wide_out):
+               array, wide_out, parent):
     """Phase 11 (b)-(d): the engine on a GRID of cells on the card of the
-    one-device engine `eng` (FI and TU(TAU) timed in turns with it) and on
+    one-device engine `eng` (FI and TU(TAU) timed in turns with it; with
+    `parent`, TU(TAU) and kmer-matches passes on the GRID in turns with
+    the parent's kernels) and on
     use_mesh=True's (1, 1) grid, the wide index and the cuckoo index on the
     GRID; every file equal to the one-device file named for it. -> the
     launches of the TU and kmer-matches passes on the GRID and the FI and
@@ -2583,6 +2842,10 @@ def phase_mesh(eng, cidx, wide, reads, codes, tmp, fi, tu, km, kc, dedup,
             f"({min(rates):.1f}-{max(rates):.1f}) against one device's "
             f"{turns:.1f} in turns ({rate / turns:.3f} x) and phase 5's "
             f"median {p5:.1f} ({rate / p5:.3f} x)")
+    for tool in ("tu", "km"):
+        method, kw = tools[tool]
+        passes_in_turns("mesh", f"mesh_{tool}", lambda m=method, kw=kw:
+                        getattr(meng, m)(reads, os.devnull, **kw), parent)
     for name, e in (("grid", meng), ("one", one)):
         for tool, (method, kw) in tools.items():
             path = os.path.join(tmp, f"mesh_{name}.{tool}")
@@ -2955,8 +3218,11 @@ def main():
                     "card, then phase 13 only (a machine with several cards)")
     ap.add_argument("--parent", metavar="DIR",
                     help="a checkout of an earlier commit (git archive into "
-                    "a directory .gitignore lists): its K2-K5 are built "
-                    "and timed in turns with this tree's in phase 10b")
+                    "a directory .gitignore lists): its kernels are built "
+                    "and K2-K5, K7 and K12 timed in turns with this tree's "
+                    "(phases 4, 10b, 11), and TU, kmer-matches, the mesh's "
+                    "TU and kmer-matches and cuckoo FI passes run in turns "
+                    "on both")
     args = ap.parse_args()
     t_start = time.perf_counter()
     card = phase_device()
@@ -2986,13 +3252,14 @@ def main():
         log(f"[index] covered fraction {eng._covered_frac:.4f} -> probe "
             f"budget {eng._pb}, redo budget {eng._pb_redo}")
         ceng = QueryEngine(phase_cuckoo_index(idx, tmp), device=eng.device)
-        rows = phase_kernels(idx, eng, ceng, codes)
+        rows = phase_kernels(idx, eng, ceng, codes, parent)
         fi = phase_fi(eng, reads, tmp)
         tu = phase_tu(eng, reads, tmp)
         km = phase_km(eng, reads, tmp)
         kc = phase_kc(eng, reads, tmp)
         dedup = phase_dedup(eng, reads, tmp)
-        cuckoo = phase_cuckoo(ceng, reads, tmp, fi, tu, km, kc, dedup)
+        cuckoo = phase_cuckoo(ceng, reads, tmp, fi, tu, km, kc, dedup,
+                              parent)
         mirror = phase_mirror(idx, codes, names, tmp, args.seed, fi, tu, km,
                               kc, dedup)
         array = phase_array(eng, ceng, codes, fi, tu, mirror)
@@ -3008,9 +3275,9 @@ def main():
             r["max_abs_err"] = max(r["max_abs_err"], errs.get(r["name"], 0))
         rows += probe_rows
         probes = phase_probes(idx, eng, reads, tmp, fi, tu)
-        rows += phase_mesh_kernels(eng, wide["index"], codes)
+        rows += phase_mesh_kernels(eng, wide["index"], codes, parent)
         mesh = phase_mesh(eng, ceng.idx, wide["index"], reads, codes, tmp,
-                          fi, tu, km, kc, dedup, array, wide["out"])
+                          fi, tu, km, kc, dedup, array, wide["out"], parent)
         v1 = phase_v1(idx, eng, codes, mirror, args.seed)
         rows.append(v1)
         cards = phase_cards(idx, eng, reads, tmp, fi, tu, km)

@@ -69,21 +69,34 @@
 //   (C % 8 == 0), so that each of the warp's two stores of a tile writes
 //   512 contiguous bytes.
 
-// K12 runs_scores is the first design's block-a-read body over runs that
-// arrive built: K6's (csid, count) runs of a read, INVALID-padded, gathered
-// from the cells of a mesh row and scored against one colour shard. It
-// replaces compact_runs -> threshold_union_scores_runs (fulgor_tpu/ops/
-// intersect.py:264) in fulgor_tpu/parallel/mesh.py
-// make_sharded_threshold_union(_packed) (:89, :154) and
-// make_sharded_kmer_matches (:263): score[b, c] = sum over the valid runs r
-// (csid != INVALID) of run_cnt[b, r] x bit c of the run's row. Mask mode
-// (the mesh TU) thresholds the scores against minscore[npos[b]] with
-// npos > 0, as K4 does, npos the read's positive windows gathered with its
-// runs; u16 mode (the mesh kmer-matches) writes the scores as int16 bit
-// patterns. Plain versions: ops/intersect.py runs_scores_plain and
-// runs_mask_plain. Bound as K4/K5; design the first one of K4/K5: warp 0
-// compacts the valid runs into shared memory with ballots, the threads
-// then own colours and add count x bit over the runs (score_of).
+// K12 runs_scores: the same scores over runs that arrive built, K6's
+// (csid, count) runs of a read, INVALID-padded, gathered from the cells of
+// a mesh row and scored against one colour shard. It replaces compact_runs
+// -> threshold_union_scores_runs (fulgor_tpu/ops/intersect.py:264) in
+// fulgor_tpu/parallel/mesh.py make_sharded_threshold_union(_packed) (:89,
+// :154) and make_sharded_kmer_matches (:263): score[b, c] = sum over the
+// valid runs r (csid != INVALID) of run_cnt[b, r] x bit c of the run's row.
+// Mask mode (the mesh TU) thresholds the scores against minscore[npos[b]]
+// with 0 < npos < the table's length, as K4 does, npos the read's positive
+// windows gathered with its runs; u16 mode (the mesh kmer-matches) writes
+// the scores as int16 bit patterns (mod 2^16, as the plain version's cast).
+// Plain versions: ops/intersect.py runs_scores_plain and runs_mask_plain.
+//   Bound: bytes. Each run slot read once (a 4 B csid; the count of a valid
+//   one), npos and the table, one C32-word row a distinct csid, and C32
+//   words (mask) or 2 B a colour (u16) written a read.
+//   Design: K4/K5's; only the front end is its own (weighted_runs): the
+//   warp loads the slots 32 at a time, compacts the valid runs in slot
+//   order by a ballot into warp_runs' layout and ranks them by a warp scan
+//   of their counts, so that a run weighs the difference of its ranks. Mask
+//   mode then takes K4's back ends (the truth table for at most kTable
+//   runs, else bit planes sized by the read's total count), u16 mode K5's
+//   spread-table counters. A read whose counts these cannot hold (a total
+//   past 65,535, in mask mode past 2,047 with more than kTable runs, or an
+//   int32 count outside [0, 65,535]) is scored colour by colour from its
+//   slots in global memory (exact_score), so that no count the C entry
+//   accepts wraps. The first design (warp 0 compacting while seven warps
+//   waited at a block barrier, then a thread a colour walking every run,
+//   one dependent load a run) reached 6% of the bound.
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -93,7 +106,7 @@ namespace {
 
 constexpr int kMaxWk = 1024;
 constexpr unsigned kFull = 0xFFFFFFFFu;
-// K4 and K5: reads a block, a warp each
+// K4, K5 and K12: reads a block, a warp each
 constexpr int kWarps = 8;
 // a window that is not positive, in warp_runs (a positive window's csid
 // is never INVALID)
@@ -304,27 +317,15 @@ __device__ __forceinline__ void table_mask(
   }
 }
 
-// K4 on read b, by its warp; cs and rk the warp's run list.
-template <int kRows, bool kNarrow>
-__device__ __forceinline__ void tu_mask_read(
+// The mask words of a read of more than kTable runs, bit-sliced over kNB
+// planes (enough for the read's largest count); cs and rk the warp's run
+// list.
+template <int kNB, bool kNarrow>
+__device__ __forceinline__ void plane_mask(
     const uint32_t* __restrict__ dense, int C32, int P, int C,
-    const uint8_t* __restrict__ hit, const uint32_t* __restrict__ csid,
-    int Wk, const int32_t* __restrict__ minscore, uint32_t* __restrict__ out,
-    long long b, int lane, uint32_t* cs, uint16_t* rk) {
-  constexpr int kNB = planes_for(kRows);
-  int npos;
-  uint32_t hitw;
-  const int nr = warp_runs<kRows>(hit + b * Wk, csid + b * Wk, Wk, lane, cs,
-                                  rk, npos, hitw);
-  uint32_t* orow = out + b * C32;
-  if (npos == 0) {
-    for (int j = lane; j < C32; j += 32) orow[j] = 0u;
-    return;
-  }
-  const int need = __ldg(minscore + npos);
-  if (nr <= kTable) {
-    table_mask(dense, C32, C, cs, rk, nr, need, lane, orow);
-  } else if constexpr (kNarrow) {
+    const uint32_t* cs, const uint16_t* rk, int nr, int need, int lane,
+    uint32_t* __restrict__ orow) {
+  if constexpr (kNarrow) {
     const int G = 32 / P;
     const int g = lane / P, j = lane & (P - 1);
     uint32_t pl[kNB] = {};
@@ -343,6 +344,32 @@ __device__ __forceinline__ void tu_mask_read(
       orow[j] = planes_ge(pl, need) & colour_bits(j, C);
     }
   }
+}
+
+__device__ __forceinline__ void zero_words(uint32_t* __restrict__ orow,
+                                           int C32, int lane) {
+  for (int j = lane; j < C32; j += 32) orow[j] = 0u;
+}
+
+// K4 on read b, by its warp; cs and rk the warp's run list.
+template <int kRows, bool kNarrow>
+__device__ __forceinline__ void tu_mask_read(
+    const uint32_t* __restrict__ dense, int C32, int P, int C,
+    const uint8_t* __restrict__ hit, const uint32_t* __restrict__ csid,
+    int Wk, const int32_t* __restrict__ minscore, uint32_t* __restrict__ out,
+    long long b, int lane, uint32_t* cs, uint16_t* rk) {
+  int npos;
+  uint32_t hitw;
+  const int nr = warp_runs<kRows>(hit + b * Wk, csid + b * Wk, Wk, lane, cs,
+                                  rk, npos, hitw);
+  uint32_t* orow = out + b * C32;
+  if (npos == 0) return zero_words(orow, C32, lane);
+  const int need = __ldg(minscore + npos);
+  if (nr <= kTable)
+    table_mask(dense, C32, C, cs, rk, nr, need, lane, orow);
+  else
+    plane_mask<planes_for(kRows), kNarrow>(dense, C32, P, C, cs, rk, nr, need,
+                                           lane, orow);
 }
 
 template <int kRows, bool kNarrow>
@@ -408,23 +435,13 @@ __device__ __forceinline__ void store_scores(int16_t* __restrict__ srow,
   }
 }
 
-// K5 on read b, by its warp; cs and rk the warp's run list.
-template <int kRows>
-__device__ __forceinline__ void km_scores_read(
-    const uint32_t* __restrict__ dense, int C32, int C,
-    const uint8_t* __restrict__ hit, const uint32_t* __restrict__ csid, int Wk,
-    int mode, int16_t* __restrict__ scores, uint32_t* __restrict__ hitw,
-    long long b, int lane, uint32_t* cs, uint16_t* rk) {
-  const uint8_t* hrow = hit + b * Wk;
-  int npos;
-  uint32_t mine = 0;
-  const int nr = warp_runs<kRows>(hrow, csid + b * Wk, Wk, lane, cs, rk, npos,
-                                  mine);
-  // the hit words, at most 32 (Wk <= 1,024): lane i stores word i
-  const int nw = (Wk + 31) >> 5;
-  if (lane < nw) hitw[b * nw + lane] = mine;
-
-  int16_t* srow = scores + b * C;
+// A read's int16 scores of colours 0..C-1 into srow, counted as 16-bit
+// fields from the spread table (no colour's score may pass 65,535); cs
+// and rk the warp's run list, mode as store_scores.
+__device__ __forceinline__ void spread_scores(
+    const uint32_t* __restrict__ dense, int C32, int C, const uint32_t* cs,
+    const uint16_t* rk, int nr, int mode, int16_t* __restrict__ srow,
+    int lane) {
   const int sh = (lane & 3) * 8;
   for (int j0 = 0; j0 < C32; j0 += 16) {
     const int ja = j0 + (lane >> 2), jb = ja + 8;
@@ -453,6 +470,23 @@ __device__ __forceinline__ void km_scores_read(
   }
 }
 
+// K5 on read b, by its warp; cs and rk the warp's run list.
+template <int kRows>
+__device__ __forceinline__ void km_scores_read(
+    const uint32_t* __restrict__ dense, int C32, int C,
+    const uint8_t* __restrict__ hit, const uint32_t* __restrict__ csid, int Wk,
+    int mode, int16_t* __restrict__ scores, uint32_t* __restrict__ hitw,
+    long long b, int lane, uint32_t* cs, uint16_t* rk) {
+  int npos;
+  uint32_t mine = 0;
+  const int nr = warp_runs<kRows>(hit + b * Wk, csid + b * Wk, Wk, lane, cs,
+                                  rk, npos, mine);
+  // the hit words, at most 32 (Wk <= 1,024): lane i stores word i
+  const int nw = (Wk + 31) >> 5;
+  if (lane < nw) hitw[b * nw + lane] = mine;
+  spread_scores(dense, C32, C, cs, rk, nr, mode, scores + b * C, lane);
+}
+
 template <int kRows>
 __global__ void __launch_bounds__(kWarps * 32) km_scores_kernel(
     const uint32_t* __restrict__ dense, int C32, int C,
@@ -469,116 +503,178 @@ __global__ void __launch_bounds__(kWarps * 32) km_scores_kernel(
                           lane, cs, rk);
 }
 
-// K12's runs: the valid (csid, count) runs of one read.
-struct WeightedRuns {
-  uint32_t run_cs[kMaxWk];
-  uint32_t run_len[kMaxWk];
-  int nruns;
-};
+// K12's run slots loaded at once by weighted_runs: kSlotRows rows of 32
+constexpr int kSlotRows = 8;
+// the largest weight, and the largest total of a read, that the run lists'
+// u16 ranks and K5's 16-bit fields hold; and the largest total that
+// K4's 11 bit planes hold. A read past them takes exact_score.
+constexpr int kMaxPacked = 0xFFFF;
+constexpr int kMaxPlanes = 2047;
 
-__device__ __forceinline__ uint32_t run_weight(int16_t v) {
-  return static_cast<uint16_t>(v);  // K6's u16 lengths
-}
-__device__ __forceinline__ uint32_t run_weight(int32_t v) {
-  return static_cast<uint32_t>(v);
-}
-
-template <typename CntT>
-__device__ void stage_weighted_runs(const uint32_t* __restrict__ run_csid,
-                                    const CntT* __restrict__ run_cnt, int R,
-                                    size_t b, WeightedRuns& r) {
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    const unsigned below = (1u << lane) - 1u;
-    int n = 0;
-    for (int i0 = 0; i0 < R; i0 += 32) {
-      const int i = i0 + lane;
-      const uint32_t c = i < R ? run_csid[b * R + i] : 0xFFFFFFFFu;
-      const bool valid = c != 0xFFFFFFFFu;
-      const unsigned bv = __ballot_sync(kFull, valid);
-      if (valid) {
-        const int at = n + __popc(bv & below);
-        r.run_cs[at] = c;
-        r.run_len[at] = run_weight(run_cnt[b * R + i]);
-      }
-      n += __popc(bv);
+// K12's front end: read b's valid run slots (csid not INVALID), in slot
+// order, into the warp's slice as warp_runs lays out its runs: cs[i] the
+// csid of valid run i, rk[i] the sum of the weights before it and rk[nr]
+// their total, so that run i weighs rk[i + 1] - rk[i]. Valid runs may
+// stand in any slot (the mesh gathers a row's cells' INVALID-padded lists
+// side by side); a csid that recurs is a run of its own and counts again.
+// The weight of a slot is its count: K6's int16 lengths as u16 (c16), or
+// int32 counts (c32), their low 16 bits where low16 (u16 mode keeps no
+// more). The warp loads the slots 32 at a time, a lane each, kSlotRows
+// rows at once, coalesced; a ballot of the valid slots places each run's
+// csid and weight, then a warp scan over the run list (one a read of at
+// most 31 runs) turns the weights into ranks. -> nr; total: the weights'
+// sum, or INT_MAX where a valid weight is outside [0, kMaxPacked] (only
+// int32 counts in mask mode); the ranks are u16, so they hold only where
+// total <= kMaxPacked.
+__device__ __forceinline__ int weighted_runs(
+    const uint32_t* __restrict__ crow, const uint16_t* __restrict__ c16,
+    const int32_t* __restrict__ c32, int R, bool low16, int lane,
+    uint32_t* cs, uint16_t* rk, int& total) {
+  const uint32_t below = (1u << lane) - 1u;
+  int nr = 0;
+  bool odd = false;
+  for (int i0 = 0; i0 < R; i0 += 32 * kSlotRows) {
+    uint32_t c[kSlotRows];
+    int32_t x[kSlotRows];
+#pragma unroll
+    for (int t = 0; t < kSlotRows; ++t) {
+      const int i = i0 + 32 * t + lane;
+      const bool in = i < R;
+      c[t] = in ? __ldg(crow + i) : kNone;
+      x[t] = !in  ? 0
+             : c16 ? static_cast<int32_t>(__ldg(c16 + i))
+                   : __ldg(c32 + i);
     }
-    if (lane == 0) r.nruns = n;
+#pragma unroll
+    for (int t = 0; t < kSlotRows; ++t) {
+      if (i0 + 32 * t >= R) break;  // the whole warp
+      const bool valid = c[t] != kNone;
+      const uint32_t vb = __ballot_sync(kFull, valid);
+      if (valid) {
+        const int32_t w = low16 ? x[t] & 0xFFFF : x[t];
+        const int at = nr + __popc(vb & below);
+        cs[at] = c[t];
+        rk[at] = static_cast<uint16_t>(w);
+        odd = odd || w < 0 || w > kMaxPacked;
+      }
+      nr += __popc(vb);
+    }
   }
-  __syncthreads();
+  __syncwarp();
+  // the weights in rk[0..nr) into ranks, rk[nr] the total
+  int sum = 0;
+  for (int i0 = 0; i0 <= nr; i0 += 32) {
+    const int i = i0 + lane;
+    const uint32_t v = i < nr ? rk[i] : 0u;
+    uint32_t incl = v;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const uint32_t up = __shfl_up_sync(kFull, incl, d);
+      if (lane >= d) incl += up;
+    }
+    if (i <= nr) rk[i] = static_cast<uint16_t>(sum + incl - v);
+    sum += static_cast<int>(__shfl_sync(kFull, incl, 31));
+  }
+  __syncwarp();
+  total = __any_sync(kFull, odd) ? INT_MAX : sum;
+  return nr;
 }
 
-// Score of colour (word j, bit) over the staged runs.
-template <typename RunList>
-__device__ __forceinline__ uint32_t score_of(
-    const uint32_t* __restrict__ dense, int C32, int j, int bit,
-    const RunList& r) {
+// The score of colour 32 j + lane over a read's R slots, read again from
+// global memory and summed mod 2^32 as the plain version's int32 sums: the
+// exact path of a read whose weights the run list's ranks or the packed
+// counters cannot hold. Each load serves the whole warp.
+__device__ __forceinline__ uint32_t exact_score(
+    const uint32_t* __restrict__ dense, int C32, int j, int lane,
+    const uint32_t* __restrict__ crow, const uint16_t* __restrict__ c16,
+    const int32_t* __restrict__ c32, int R) {
   uint32_t s = 0;
-  for (int i = 0; i < r.nruns; ++i) {
-    const uint32_t word =
-        __ldg(dense + static_cast<size_t>(r.run_cs[i]) * C32 + j);
-    s += ((word >> bit) & 1u) * r.run_len[i];
+  for (int i = 0; i < R; ++i) {
+    const uint32_t c = __ldg(crow + i);
+    if (c == kNone) continue;
+    const uint32_t w = c16 ? static_cast<uint32_t>(__ldg(c16 + i))
+                           : static_cast<uint32_t>(__ldg(c32 + i));
+    s += ((__ldg(dense + static_cast<size_t>(c) * C32 + j) >> lane) & 1u) * w;
   }
   return s;
 }
 
-// K12: mask mode (kMask) writes (B, C32) u32 words, else (B, C) int16.
-template <bool kMask, typename CntT>
-__global__ void runs_scores_kernel(const uint32_t* __restrict__ dense, int C32,
-                                   int C, const uint32_t* __restrict__ run_csid,
-                                   const CntT* __restrict__ run_cnt, int R,
-                                   const int32_t* __restrict__ npos,
-                                   const int32_t* __restrict__ minscore,
-                                   int n_ms, uint32_t* __restrict__ mask,
-                                   int16_t* __restrict__ scores) {
-  __shared__ WeightedRuns r;
-  const size_t b = blockIdx.x;
-  stage_weighted_runs(run_csid, run_cnt, R, b, r);
-  if constexpr (kMask) {
-    const int np = npos[b];
-    // a count past the table passes no colour (the engine's table covers
-    // every count a read of its width can have)
-    const int need = np < n_ms ? minscore[np] : INT_MAX;
-    for (int c0 = 0; c0 < C32 * 32; c0 += blockDim.x) {
-      const int c = c0 + threadIdx.x;
-      if (c >= C32 * 32) break;
-      const int j = c >> 5;
-      const bool pass = np > 0 && c < C &&
-                        static_cast<int>(score_of(dense, C32, j, c & 31, r)) >=
-                            need;
-      const unsigned word = __ballot_sync(kFull, pass);
-      if ((threadIdx.x & 31) == 0) mask[b * C32 + j] = word;
+// K12's mask mode on one read, by its warp: np its positive windows.
+template <bool kNarrow>
+__device__ __forceinline__ void runs_mask_read(
+    const uint32_t* __restrict__ dense, int C32, int P, int C,
+    const uint32_t* __restrict__ crow, const uint16_t* __restrict__ c16,
+    const int32_t* __restrict__ c32, int R, int np,
+    const int32_t* __restrict__ minscore, int n_ms,
+    uint32_t* __restrict__ orow, int lane, uint32_t* cs, uint16_t* rk) {
+  // no positive window, or a count past the table: no colour passes
+  if (np <= 0 || np >= n_ms) return zero_words(orow, C32, lane);
+  const int need = __ldg(minscore + np);
+  int total;
+  const int nr = weighted_runs(crow, c16, c32, R, false, lane, cs, rk, total);
+  // the bit planes sized by the read's total, as K4's by its Wk
+  if (total <= kMaxPacked && nr <= kTable)
+    table_mask(dense, C32, C, cs, rk, nr, need, lane, orow);
+  else if (total < 64)
+    plane_mask<6, kNarrow>(dense, C32, P, C, cs, rk, nr, need, lane, orow);
+  else if (total < 128)
+    plane_mask<7, kNarrow>(dense, C32, P, C, cs, rk, nr, need, lane, orow);
+  else if (total < 256)
+    plane_mask<8, kNarrow>(dense, C32, P, C, cs, rk, nr, need, lane, orow);
+  else if (total <= kMaxPlanes)
+    plane_mask<11, kNarrow>(dense, C32, P, C, cs, rk, nr, need, lane, orow);
+  else
+    for (int j = 0; j < C32; ++j) {
+      const uint32_t s = exact_score(dense, C32, j, lane, crow, c16, c32, R);
+      const uint32_t w = __ballot_sync(
+          kFull, 32 * j + lane < C && static_cast<int>(s) >= need);
+      if (lane == 0) orow[j] = w;
     }
-  } else {
-    for (int c = threadIdx.x; c < C; c += blockDim.x)
-      scores[b * C + c] =
-          static_cast<int16_t>(score_of(dense, C32, c >> 5, c & 31, r));
+}
+
+// K12's u16 mode on one read, by its warp: scores mod 2^16, as the plain
+// version's int32 scores cast to int16.
+__device__ __forceinline__ void runs_u16_read(
+    const uint32_t* __restrict__ dense, int C32, int C,
+    const uint32_t* __restrict__ crow, const uint16_t* __restrict__ c16,
+    const int32_t* __restrict__ c32, int R, int mode,
+    int16_t* __restrict__ srow, int lane, uint32_t* cs, uint16_t* rk) {
+  int total;
+  const int nr = weighted_runs(crow, c16, c32, R, true, lane, cs, rk, total);
+  if (total <= kMaxPacked)
+    return spread_scores(dense, C32, C, cs, rk, nr, mode, srow, lane);
+  for (int j = 0; j < C32; ++j) {
+    const uint32_t s = exact_score(dense, C32, j, lane, crow, c16, c32, R);
+    if (32 * j + lane < C) srow[32 * j + lane] = static_cast<int16_t>(s);
   }
 }
 
-template <typename CntT>
-int launch_runs_scores(const void* dense, int C32, int C, const void* run_csid,
-                       const void* run_cnt, int B, int R, const void* npos,
-                       const void* minscore, int n_ms, void* out,
-                       cudaStream_t stream, int threads) {
-  const auto* d = static_cast<const uint32_t*>(dense);
-  const auto* rc = static_cast<const uint32_t*>(run_csid);
-  const auto* cnt = static_cast<const CntT*>(run_cnt);
-  if (minscore != nullptr)
-    runs_scores_kernel<true, CntT><<<B, threads, 0, stream>>>(
-        d, C32, C, rc, cnt, R, static_cast<const int32_t*>(npos),
-        static_cast<const int32_t*>(minscore), n_ms,
-        static_cast<uint32_t*>(out), nullptr);
+// K12, a warp a read: mask mode (kMask) writes (B, C32) u32 words, else
+// (B, C) int16. One of c16 and c32 is null.
+template <bool kMask, bool kNarrow>
+__global__ void __launch_bounds__(kWarps * 32) runs_scores_kernel(
+    const uint32_t* __restrict__ dense, int C32, int P, int C,
+    const uint32_t* __restrict__ run_csid, const uint16_t* __restrict__ c16,
+    const int32_t* __restrict__ c32, int B, int R,
+    const int32_t* __restrict__ npos, const int32_t* __restrict__ minscore,
+    int n_ms, int mode, uint32_t* __restrict__ mask,
+    int16_t* __restrict__ scores) {
+  extern __shared__ uint32_t runs[];  // kWarps x (R csids, R + 1 ranks)
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  uint32_t* cs = runs + warp * (R + (R + 2) / 2);
+  uint16_t* rk = reinterpret_cast<uint16_t*>(cs + R);
+  const long long b = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  if (b >= B) return;  // the whole warp
+  const uint32_t* crow = run_csid + b * R;
+  const uint16_t* r16 = c16 ? c16 + b * R : nullptr;
+  const int32_t* r32 = c16 ? nullptr : c32 + b * R;
+  if constexpr (kMask)
+    runs_mask_read<kNarrow>(dense, C32, P, C, crow, r16, r32, R,
+                            __ldg(npos + b), minscore, n_ms, mask + b * C32,
+                            lane, cs, rk);
   else
-    runs_scores_kernel<false, CntT><<<B, threads, 0, stream>>>(
-        d, C32, C, rc, cnt, R, nullptr, nullptr, 0, nullptr,
-        static_cast<int16_t*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
-int threads_for(int C32) {
-  const int t = C32 * 32;
-  return t > 256 ? 256 : t;
+    runs_u16_read(dense, C32, C, crow, r16, r32, R, mode, scores + b * C,
+                  lane, cs, rk);
 }
 
 bool bad_shape(int B, int C32, int C, int Wk) {
@@ -587,14 +683,31 @@ bool bad_shape(int B, int C32, int C, int Wk) {
 }
 
 // K4/K5: rows of 32 windows a pass (a read's windows in one pass up to
-// 256), and each block's run lists
+// 256)
 int rows_per_pass(int Wk) { return Wk > 224 ? 8 : (Wk + 31) / 32; }
 
+// each block's run lists, at most Wk (K4/K5) or R (K12) runs a read
 size_t runs_smem(int Wk) {
   return static_cast<size_t>(kWarps) * (Wk + (Wk + 2) / 2) * sizeof(uint32_t);
 }
 
-// Past 48 KB (Wk = 1,024) a block's dynamic shared memory must be allowed.
+// K4 and K12's lane groups of a narrow row: the power of two at or above
+// C32, at most 32
+int lane_group(int C32) {
+  int P = 1;
+  while (P < C32 && P < 32) P <<= 1;
+  return P;
+}
+
+// K5 and K12's store width (store_scores): 16 B where each row starts 16 B
+// aligned, 4 B where 4 B aligned, else 2 B
+int store_mode(int C, const void* scores) {
+  const auto at = reinterpret_cast<uintptr_t>(scores);
+  return C % 8 == 0 && at % 16 == 0 ? 2 : C % 2 == 0 && at % 4 == 0 ? 1 : 0;
+}
+
+// Past 48 KB (Wk or R = 1,024) a block's dynamic shared memory must be
+// allowed.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -609,8 +722,6 @@ extern "C" int fulgor_tu_mask(const void* dense, int C32, int C,
                               const void* hit, const void* csid, int B, int Wk,
                               const void* minscore, void* out, void* stream) {
   if (bad_shape(B, C32, C, Wk)) return static_cast<int>(cudaErrorInvalidValue);
-  int P = 1;
-  while (P < C32 && P < 32) P <<= 1;
   auto kernel = tu_mask_kernel<1, true>;
   switch (rows_per_pass(Wk)) {
 #define FULGOR_TU_MASK_CASE(N)                                           \
@@ -632,7 +743,7 @@ extern "C" int fulgor_tu_mask(const void* dense, int C32, int C,
   if (e != cudaSuccess) return static_cast<int>(e);
   const unsigned blocks = static_cast<unsigned>((B + kWarps - 1) / kWarps);
   kernel<<<blocks, kWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(dense), C32, P, C,
+      static_cast<const uint32_t*>(dense), C32, lane_group(C32), C,
       static_cast<const uint8_t*>(hit), static_cast<const uint32_t*>(csid), B,
       Wk, static_cast<const int32_t*>(minscore), static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
@@ -662,16 +773,12 @@ extern "C" int fulgor_km_scores(const void* dense, int C32, int C,
   const size_t smem = runs_smem(Wk);
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  // the store width a row allows: 16 B where each row starts 16 B aligned
-  const auto at = reinterpret_cast<uintptr_t>(scores);
-  const int mode = C % 8 == 0 && at % 16 == 0   ? 2
-                   : C % 2 == 0 && at % 4 == 0 ? 1
-                                               : 0;
   const unsigned blocks = static_cast<unsigned>((B + kWarps - 1) / kWarps);
   kernel<<<blocks, kWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(dense), C32, C,
       static_cast<const uint8_t*>(hit), static_cast<const uint32_t*>(csid), B,
-      Wk, mode, static_cast<int16_t*>(scores), static_cast<uint32_t*>(hitw));
+      Wk, store_mode(C, scores), static_cast<int16_t*>(scores),
+      static_cast<uint32_t*>(hitw));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -686,12 +793,25 @@ extern "C" int fulgor_runs_scores(const void* dense, int C32, int C,
   if (B <= 0 || C32 <= 0 || C < 0 || C > C32 * 32 || R <= 0 || R > kMaxWk ||
       (cnt_bytes != 2 && cnt_bytes != 4) || (minscore != nullptr && n_ms <= 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (cnt_bytes == 2)
-    return launch_runs_scores<int16_t>(dense, C32, C, run_csid, run_cnt, B, R,
-                                       npos, minscore, n_ms, out, s,
-                                       threads_for(C32));
-  return launch_runs_scores<int32_t>(dense, C32, C, run_csid, run_cnt, B, R,
-                                     npos, minscore, n_ms, out, s,
-                                     threads_for(C32));
+  const bool mask = minscore != nullptr;
+  auto kernel = runs_scores_kernel<false, false>;
+  if (mask)
+    kernel = C32 <= 32 ? runs_scores_kernel<true, true>
+                       : runs_scores_kernel<true, false>;
+  const size_t smem = runs_smem(R);
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const auto* c16 = cnt_bytes == 2 ? static_cast<const uint16_t*>(run_cnt)
+                                   : nullptr;
+  const auto* c32 = cnt_bytes == 4 ? static_cast<const int32_t*>(run_cnt)
+                                   : nullptr;
+  const unsigned blocks = static_cast<unsigned>((B + kWarps - 1) / kWarps);
+  kernel<<<blocks, kWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(dense), C32, lane_group(C32), C,
+      static_cast<const uint32_t*>(run_csid), c16, c32, B, R,
+      static_cast<const int32_t*>(npos), static_cast<const int32_t*>(minscore),
+      n_ms, mask ? 0 : store_mode(C, out),
+      mask ? static_cast<uint32_t*>(out) : nullptr,
+      mask ? nullptr : static_cast<int16_t*>(out));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -151,6 +151,9 @@ def cuckoo_lookup(table, codes2, bad, *, width: int, k: int):
                          "and (B, W/8), the table int32, on one device")
     b = _check_table(table)
     codes2, bad, table = codes2.contiguous(), bad.contiguous(), table.contiguous()
+    if codes2.data_ptr() % 4 or bad.data_ptr() % 4 or table.data_ptr() % 16:
+        raise ValueError("cuckoo_lookup: codes2 and bad must start 4-byte "
+                         "aligned, the table 16-byte aligned")
     Wk = width - k + 1
     hit = torch.empty((B, Wk), dtype=torch.bool, device=codes2.device)
     csid = torch.empty((B, Wk), dtype=torch.int32, device=codes2.device)

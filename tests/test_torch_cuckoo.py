@@ -58,45 +58,62 @@ def indexes(tmp_path_factory):
     return out
 
 
-def _chunk(idx, seed):
-    """(64, W) codes: 40 reads from the indexed text (some with an N), 16
-    random, one padded after 70 bases, one with fewer bases than k."""
+def _chunk(idx, seed, width=W):
+    """(64, width) codes: 40 reads from the indexed text (some with an N),
+    16 random, one padded after 70 bases, one with fewer bases than k."""
     rng = np.random.default_rng(seed)
     codes_all = K.unpack2(idx.unitig_seq, int(idx.unitig_offs[-1]))
-    chunk = rng.integers(0, 4, size=(64, W)).astype(np.uint8)
+    chunk = rng.integers(0, 4, size=(64, width)).astype(np.uint8)
     for b in range(40):
-        p = rng.integers(0, len(codes_all) - W)
-        chunk[b] = codes_all[p: p + W]
+        p = rng.integers(0, len(codes_all) - width)
+        chunk[b] = codes_all[p: p + width]
         if b % 5 == 0:
-            chunk[b, rng.integers(0, W)] = 4
-    chunk[40:44] = rng.integers(0, 5, size=(4, W))  # N anywhere
+            chunk[b, rng.integers(0, width)] = 4
+    chunk[40:44] = rng.integers(0, 5, size=(4, width))  # N anywhere
     chunk[45, 70:] = 4
     chunk[46, idx.k - 1:] = 4
     return chunk
 
 
-@pytest.mark.parametrize("k", KS)
-def test_cuckoo_lookup_plain_matches_jax(indexes, k):
+# the kernel's edge shapes beside the base batch: a batch of 37 reads (not
+# a multiple of a block's 8) with reads 3-10 all N; widths 32 (one window
+# at k = 31) and 1,024 (the widest)
+SHAPES = [(W, 64), (W, 37), (32, 64), (1024, 64)]
+CASES = [(k, w, n) for w, n in SHAPES for k in KS]
+
+
+@pytest.mark.parametrize(
+    "k, width, reads", CASES,
+    ids=[str(k) if (w, n) == (W, 64) else f"{k}-w{w}-b{n}"
+         for k, w, n in CASES])
+def test_cuckoo_lookup_plain_matches_jax(indexes, k, width, reads):
     idx = indexes[k][0]
-    chunk = _chunk(idx, seed=k)
+    chunk = _chunk(idx, seed=k + width, width=width)[:reads]
+    if reads < 64:
+        chunk[3:11] = 4
     codes2, bad = pack_reads_host(chunk)
     jh, jc = lookup_batch(jnp.asarray(idx.dict_table),
                           unpack_reads(jnp.asarray(codes2), jnp.asarray(bad),
-                                       W), k)
+                                       width), k)
     table = torch.from_numpy(idx.dict_table.view(np.int32))
     th, tc = cuckoo_lookup(table, torch.from_numpy(codes2),
-                           torch.from_numpy(bad), width=W, k=k)
-    assert th.shape == tc.shape == (64, W - k + 1)
+                           torch.from_numpy(bad), width=width, k=k)
+    assert th.shape == tc.shape == (reads, width - k + 1)
     np.testing.assert_array_equal(th.numpy(), np.asarray(jh))
     np.testing.assert_array_equal(tc.numpy().view(np.uint32), np.asarray(jc))
     hits = th.numpy()
-    assert hits[:40].mean() > 0.3 and not hits[46].any()
-    assert not hits[45, 70 - k + 1:].any()
+    if (width, reads) == (W, 64):
+        assert hits[:40].mean() > 0.3 and not hits[46].any()
+        assert not hits[45, 70 - k + 1:].any()
+    else:  # reads from the text hit; the all-N reads never
+        text = [b for b in range(min(40, reads)) if not 3 <= b < 11]
+        assert hits[text].any(axis=1).mean() > 0.25
+        assert reads == 64 or not hits[3:11].any()
     # one row a valid window, a second where the first choice misses
     valid = (np.lib.stride_tricks.sliding_window_view(chunk < 4, k, axis=1)
              .all(axis=2))
     rows = cuckoo_row_gathers(table, torch.from_numpy(codes2),
-                              torch.from_numpy(bad), width=W, k=k)
+                              torch.from_numpy(bad), width=width, k=k)
     assert valid.sum() < rows < 2 * valid.sum()
 
 

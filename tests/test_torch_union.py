@@ -11,7 +11,13 @@ versions against fulgor_tpu, bit-exact (tolerance 0).
 - both at the kernels' edge shapes (C32 1, 8, 143 with a ragged C; Wk 1,
   33, 1,024; a read scoring 1,024), with a numpy model of K4's bit-sliced
   counts (a ripple add of run length x row word over 11 bit planes, the
-  threshold a compare from the top plane) held against the same scores.
+  threshold a compare from the top plane) held against the same scores;
+- K12's plain versions at its edge shapes (C32 1, 8, 72, 143 x R 1 to
+  1,024 run slots) against threshold_union_scores_runs, thresholded and
+  packed as the mesh does, with numpy models of its front end (the ballot
+  compaction of the valid slots, ranks as prefixes of the counts), its
+  truth table, its bit planes sized by a read's total and its spread
+  counters.
 """
 
 import jax.numpy as jnp
@@ -21,7 +27,9 @@ import torch
 
 from fulgor_tpu.ops import intersect as J
 from fulgor_tpu.ops import pipeline as JP
-from fulgor_tpu_torch.ops.intersect import km_scores, tu_mask
+from fulgor_tpu_torch.ops.intersect import (
+    km_scores, runs_mask, runs_scores, runs_scores_plain, tu_mask,
+)
 
 from tests.test_torch_threads import one_thread  # noqa: F401
 
@@ -211,11 +219,17 @@ def _bitsliced_counts(dense, hit, csid):
     PLANES bit planes and the length added by a ripple add of len x row
     word. -> planes (B, C32, PLANES) uint32."""
     run_cs, run_len, _nr = _runs(hit, csid)
-    planes = np.zeros((hit.shape[0], dense.shape[1], PLANES), np.uint32)
+    return _plane_counts(dense, run_cs, run_len, PLANES)
+
+
+def _plane_counts(dense, run_cs, run_len, nplanes):
+    """_bitsliced_counts over given run lists (run_len 0 past a read's
+    runs) and nplanes planes -> (B, C32, nplanes) uint32."""
+    planes = np.zeros((run_cs.shape[0], dense.shape[1], nplanes), np.uint32)
     for r in range(run_cs.shape[1]):
         w = dense[run_cs[:, r]]
         carry = np.zeros_like(w)
-        for p in range(PLANES):
+        for p in range(nplanes):
             bit = ((run_len[:, r] >> p) & 1).astype(bool)[:, None]
             add = np.where(bit, w, 0).astype(np.uint32)
             a = planes[:, :, p].copy()
@@ -228,10 +242,10 @@ def _planes_ge(planes, need):
     """Per word, the colours whose bit-sliced count is at least need[b]:
     compared from the top plane (greater where the count has a 1 and need
     a 0 with every plane above equal)."""
-    B, C32, _ = planes.shape
+    B, C32, nplanes = planes.shape
     gt = np.zeros((B, C32), np.uint32)
     eq = np.full((B, C32), 0xFFFFFFFF, np.uint32)
-    for p in range(PLANES - 1, -1, -1):
+    for p in range(nplanes - 1, -1, -1):
         one = ((need >> p) & 1).astype(bool)[:, None]
         pl = planes[:, :, p]
         gt = np.where(one, gt, gt | (eq & pl))
@@ -245,11 +259,19 @@ def _table_mask(dense, hit, csid, need):
     word is T looked up colour by colour by a multiplexer tree over the
     runs' row words. -> (words (B, C32) uint32, which reads it serves)."""
     run_cs, run_len, nr = _runs(hit, csid)
-    served = (nr > 0) & (nr <= TABLE_RUNS)
-    out = np.zeros((hit.shape[0], dense.shape[1]), np.uint32)
+    out, served = _table_words(dense, run_cs, run_len, nr, need)
+    return out, served & (nr > 0)
+
+
+def _table_words(dense, run_cs, run_len, nr, need):
+    """_table_mask over given run lists: every read of at most TABLE_RUNS
+    runs (none included). -> (words (B, C32) uint32, served)."""
+    served = nr <= TABLE_RUNS
+    out = np.zeros((len(nr), dense.shape[1]), np.uint32)
     for b in np.flatnonzero(served):
         q = np.arange(16)
-        s = sum(((q >> r) & 1) * int(run_len[b, r]) for r in range(nr[b]))
+        s = sum((((q >> r) & 1) * int(run_len[b, r]) for r in range(nr[b])),
+                np.zeros(16, np.int64))
         leaves = [np.uint32(0xFFFFFFFF) if t else np.uint32(0)
                   for t in s >= need[b]]
         x = [dense[run_cs[b, r]] if r < nr[b] else np.zeros_like(dense[0])
@@ -267,7 +289,13 @@ def _spread_counts(dense, hit, csid, C):
     fields, a run adding len x the spread of each byte of its row (bit 2k
     to the low field of word k, bit 2k + 1 to the high one). -> (B, C)."""
     run_cs, run_len, _nr = _runs(hit, csid)
-    B, C32 = hit.shape[0], dense.shape[1]
+    return _spread_runs(dense, run_cs, run_len, C)
+
+
+def _spread_runs(dense, run_cs, run_len, C):
+    """_spread_counts over given run lists -> (B, C) int64, each score
+    mod 2^16 where no score passes 65,535."""
+    B, C32 = run_cs.shape[0], dense.shape[1]
     x = np.arange(256, dtype=np.uint32)[:, None]
     k = np.arange(4, dtype=np.uint32)[None, :]
     spread = ((x >> (2 * k)) & 1) | (((x >> (2 * k + 1)) & 1) << 16)
@@ -331,3 +359,180 @@ def test_edge_shapes(c32, wk):
         np.testing.assert_array_equal((table & colour)[served], want[served])
         if tau == 0.01 and wk < 100:  # need 0: every colour below C
             assert (want[npos > 0] == colour).all()
+
+
+# K12's edge shapes (C32, R): one word, a mesh shard's 8 and the 4,546-colour
+# index's 72-word shard and 143 words; one slot, a slot past a warp, the
+# (2, 2) grid's 130 and the kernel's 1,024
+K12_SHAPES = [(1, 1), (1, 1024), (8, 33), (8, 130), (72, 130), (143, 1024)]
+NPOS_MAX = 3000  # the npos table's last entry in these batches
+INVALID = 0xFFFFFFFF
+
+
+def _slot_inputs(c32, R, reads=24):
+    """reads x R run slots over 400 rows of c32 words (a third all ones,
+    pad bits included), as the mesh gathers them: each read's valid runs
+    scattered among INVALID slots, csids from a pool of four a read (a
+    csid recurs). Reads 0-2 hold no valid run, 3-7 one to four, the rest
+    any number up to R; int32 counts by read mod 4: 1-11, summing to
+    1,024, 100-3,000 (totals past 2,047), 0-8,191 (totals past 65,535 and
+    below 2^23, where fulgor_tpu's f32 sums are exact), and -8,191 to -1
+    in reads 11 and 19 (a run at least). npos: the total clipped to [1,
+    NPOS_MAX],
+    but 0 in reads 0-1, 50 in read 2 (positive windows, no valid run) and
+    past the table in reads 8 and 16. -> (dense u32, run_csid u32, counts
+    int32, npos int32)."""
+    rng = np.random.default_rng(c32 * 13 + R)
+    rows = 400
+    dense = (rng.integers(0, 1 << 32, (rows, c32), dtype=np.uint64)
+             | rng.integers(0, 1 << 32, (rows, c32), dtype=np.uint64))
+    dense[: rows // 3] = 0xFFFFFFFF
+    nvalid = rng.integers(0, R + 1, reads)
+    nvalid[:3] = 0
+    nvalid[3:8] = np.minimum(np.arange(5) % 4 + 1, R)
+    nvalid[[11, 19]] = np.maximum(nvalid[[11, 19]], 1)
+    rc = np.full((reads, R), INVALID, np.uint32)
+    cnt = np.zeros((reads, R), np.int32)
+    for b in range(reads):
+        n = int(nvalid[b])
+        slots = rng.choice(R, n, replace=False)
+        rc[b, slots] = rng.integers(0, rows, 4)[rng.integers(0, 4, n)]
+        if b in (11, 19):
+            c = -rng.integers(1, 8192, n)
+        elif b % 4 == 0:
+            c = rng.integers(1, 12, n)
+        elif b % 4 == 1 and n:
+            cuts = np.sort(rng.choice(np.arange(1, 1024), n - 1,
+                                      replace=False))
+            c = np.diff([0, *cuts, 1024])
+        elif b % 4 == 2:
+            c = rng.integers(100, 3001, n)
+        else:
+            c = rng.integers(0, 8192, n)
+        cnt[b, slots] = c
+    npos = np.clip(cnt.astype(np.int64).sum(axis=1), 1, NPOS_MAX)
+    npos[:2] = 0
+    npos[2] = 50
+    npos[[8, 16]] = NPOS_MAX + 1 + np.arange(2)
+    return dense.astype(np.uint32), rc, cnt, npos.astype(np.int32)
+
+
+def _slot_runs(rc, weights):
+    """K12's front end in numpy: the slots taken 32 at a time; a ballot of
+    the valid ones places each at the runs so far plus its valid lanes
+    below, and an inclusive scan of the weights (0 where invalid) ranks
+    it. -> (run_cs (B, R) int64 and run_len (B, R) int64 in slot order, 0
+    past the runs; nr (B,); total (B,))."""
+    B, R = rc.shape
+    run_cs = np.zeros((B, R), np.int64)
+    rank = np.zeros((B, R + 1), np.int64)
+    nr = np.zeros(B, np.int64)
+    total = np.zeros(B, np.int64)
+    for i0 in range(0, R, 32):
+        valid = rc[:, i0:i0 + 32] != INVALID
+        v = np.where(valid, weights[:, i0:i0 + 32], 0).astype(np.int64)
+        incl = np.cumsum(v, axis=1)
+        below = np.cumsum(valid, axis=1) - valid
+        for b in range(B):
+            at = nr[b] + below[b][valid[b]]
+            run_cs[b, at] = rc[b, i0:i0 + 32][valid[b]]
+            rank[b, at] = (total[b] + incl[b] - v[b])[valid[b]]
+        nr += valid.sum(axis=1)
+        total += incl[:, -1]
+    rank[np.arange(B), nr] = total
+    run_len = np.diff(rank, axis=1)
+    run_len[np.arange(R)[None, :] >= nr[:, None]] = 0
+    return run_cs, run_len, nr, total
+
+
+@pytest.mark.parametrize("c32, R", K12_SHAPES)
+def test_runs_edge_shapes(c32, R):
+    """K12's edge shapes (C32 x R with a ragged C = 32 C32 - 5; reads of no
+    valid run, of 1-4 and of more; valid runs scattered among INVALID
+    slots; a csid that recurs; counts summing to 1,024 and past 2,047 and
+    65,535, negative int32 ones; npos 0 and past the table): plain K12 in
+    u16 mode (int32 and K6's int16 counts) against threshold_union_scores_
+    runs, and in mask mode at tau 0.01, 0.8 and 1.0 against those scores
+    thresholded and packed as the mesh does; then numpy models of the
+    kernel's arithmetic against the same scores and words: the ballot
+    compaction in slot order with ranks as prefixes of the counts, the
+    truth table on reads of at most four runs, bit planes sized by the
+    read's total (counts up to 2,047), and the spread counters of u16 mode
+    (totals up to 65,535)."""
+    C = 32 * c32 - 5
+    dense, rc, cnt, npos = _slot_inputs(c32, R)
+    jd, jrc = jnp.asarray(dense), jnp.asarray(rc)
+    want = np.asarray(J.threshold_union_scores_runs(
+        jd, jrc, jnp.asarray(cnt), C)).astype(np.int64)
+    low16 = cnt & 0xFFFF
+    want16 = np.asarray(J.threshold_union_scores_runs(
+        jd, jrc, jnp.asarray(low16), C)).astype(np.int64)
+    d_t, rc_t = torch.from_numpy(dense.view(np.int32)), torch.from_numpy(
+        rc.view(np.int32))
+    c32_t = torch.from_numpy(cnt)
+    c16_t = torch.from_numpy(low16.astype(np.uint16).view(np.int16))
+    np.testing.assert_array_equal(
+        runs_scores_plain(d_t, rc_t, c32_t, C).numpy(), want)
+    # K6's int16 counts weigh as u16: the int32 sums of the low 16 bits,
+    # fulgor_tpu's f32 sums exact where the total is below 2^24
+    got16 = runs_scores_plain(d_t, rc_t, c16_t, C).numpy()
+    np.testing.assert_array_equal(got16, runs_scores_plain(
+        d_t, rc_t, torch.from_numpy(low16), C).numpy())
+    exact = low16.astype(np.int64).sum(axis=1) < 1 << 24
+    np.testing.assert_array_equal(got16[exact], want16[exact])
+    for c_t, w in ((c32_t, want), (c16_t, got16)):  # u16 mode: mod 2^16
+        got = runs_scores(d_t, rc_t, c_t, C).numpy()
+        np.testing.assert_array_equal(got, (w & 0xFFFF).astype(np.uint16)
+                                      .view(np.int16))
+    assert not want[:3].any() and (want[[11, 19]] < 0).any()
+
+    run_cs, run_len, nr, total = _slot_runs(rc, cnt)
+    for b in range(len(rc)):  # slot order; each weighs its count
+        valid = rc[b] != INVALID
+        np.testing.assert_array_equal(run_cs[b, : nr[b]], rc[b][valid])
+        np.testing.assert_array_equal(run_len[b, : nr[b]], cnt[b][valid])
+    assert (nr[3:8] == np.minimum(np.arange(5) % 4 + 1, R)).all()
+
+    colour = np.array([(1 << min(max(C - 32 * j, 0), 32)) - 1
+                       for j in range(c32)], np.uint64).astype(np.uint32)
+    simple = (run_len >= 0).all(axis=1)  # no negative count
+    for tau in (0.01, 0.8, 1.0):
+        tab = (np.arange(NPOS_MAX + 1, dtype=np.float64) * tau).astype(
+            np.int32)
+        inside = (npos > 0) & (npos <= NPOS_MAX)
+        need = np.where(inside, tab[np.minimum(npos, NPOS_MAX)], 0).astype(
+            np.int64)
+        mask = np.zeros((len(rc), 32 * c32), dtype=bool)
+        mask[:, :C] = (want >= need[:, None]) & inside[:, None]
+        words = np.asarray(J.pack_bool_bits(jnp.asarray(mask)))
+        got = runs_mask(d_t, rc_t, c32_t, torch.from_numpy(npos),
+                        torch.from_numpy(tab), C).numpy().view(np.uint32)
+        np.testing.assert_array_equal(got, words)
+        table, served = _table_words(dense, run_cs, run_len, nr, need)
+        served &= inside & simple & (total <= 65535)
+        np.testing.assert_array_equal((table & colour)[served],
+                                      words[served])
+        for nplanes, lo, hi in ((6, 0, 63), (7, 64, 127), (8, 128, 255),
+                                (11, 256, 2047)):
+            rows = simple & (total >= lo) & (total <= hi)
+            planes = _plane_counts(dense, run_cs[rows], run_len[rows],
+                                   nplanes)
+            counts = (planes[:, :, None, :] >> np.arange(
+                32, dtype=np.uint32)[None, None, :, None]) & 1
+            counts = (counts.astype(np.int64)
+                      * (1 << np.arange(nplanes))).sum(axis=3)
+            np.testing.assert_array_equal(
+                counts.reshape(len(counts), 32 * c32)[:, :C], want[rows])
+            ge = _planes_ge(planes, need[rows]) & colour
+            sel = inside[rows]
+            np.testing.assert_array_equal(ge[sel], words[rows][sel])
+    assert served.any()
+
+    run_cs16, run_len16, _nr, total16 = _slot_runs(rc, low16)
+    rows = total16 <= 65535
+    np.testing.assert_array_equal(
+        _spread_runs(dense, run_cs16[rows], run_len16[rows].astype(np.uint32),
+                     C), want16[rows])
+    assert rows.any()
+    if R > 8:  # totals past 65,535 take the exact path
+        assert (want > 65535).any() and not rows.all()
