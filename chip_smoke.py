@@ -99,15 +99,27 @@ last line, which is printed only when every phase passed:
               reads), its light, heavy and past-B2 reads logged, and every
               window it decides equal to K2 at (8, 4); K11 anchored_probe
               at the default (RA, RU) and (4, 2), no hit in ovf and csid
-              equal to K2's wherever both hit; both probes timed whole
+              equal to K2's wherever both hit. Then K10 and K11 on seeded
+              edge batches of reads cut from the unitig text, bit for bit:
+              Wk 1, 31, 33, 130 and 1,024 (1,054 bases in two pieces of
+              1,024 overlapping by k - 1) at 777 reads, B 1, 7 and 40,000
+              at Wk 130 (BH = 5,000), an all-heavy batch; reads with no
+              usable window, with more runs than RA and heavy reads past
+              BH; K10 at (2, 8, 4, 16), (0, 8, 4, 1) and (2, 8, 4, Wk), K11
+              at its defaults, (1, 1) and (Wk, Wk). Both probes timed whole
               (the device time of every kernel a call launches, K2's
               included, L2 cold and warm; and the call on the stream, launch
-              gaps included). End to end, FI and TU(0.8) under the staged probe
+              gaps included), each of their own kernels beside its byte
+              bound; with --parent in turns with DIR's K10 and K11, launched
+              by DIR's own wrappers (parent, this, this, parent). End to
+              end, FI and TU(0.8) under the staged probe
               (FULGOR_PROBE_BUDGET=2,8,4,16, a new engine) and the
               anchored one (pipeline.ANCHORED_PROBE on, restored after):
-              each a warm-up, two timed passes (the staged ones in turns
-              with one-pass passes of the same tool) and a profiled pass to
-              a file, which must hold phase 5's FI or phase 6's TU records.
+              each a warm-up, timed passes (two staged ones in turns
+              with one-pass passes of the same tool, one anchored; with
+              --parent one staged FI pass also in turns with DIR's
+              kernels) and a profiled pass to a file, which must hold
+              phase 5's FI or phase 6's TU records.
  10b. k2-k5  K2, K3, K4 and K5 as redesigned for the card, bit for bit
               against their plain versions: K2 in its three modes at the
               engine's two budgets and at (0, 2) and (20, 4) (no verify;
@@ -243,7 +255,7 @@ from fulgor_tpu_torch.ops.lookup import (
 )
 from fulgor_tpu_torch.ops import pipeline as pipeline_mod
 from fulgor_tpu_torch.ops.anchored import (
-    minidict2_anchored_probe, minidict2_anchored_probe_plain,
+    _run_bounds, minidict2_anchored_probe, minidict2_anchored_probe_plain,
 )
 from fulgor_tpu_torch.ops.minidict import (
     V1_FIELDS, _text_kmer, build_minidict, lookup_minidict_batch_plain,
@@ -254,7 +266,8 @@ from fulgor_tpu_torch.ops.minidict2 import (
     reprobe_budget,
 )
 from fulgor_tpu_torch.ops.prep import (
-    PREP_FIELDS, pack_codes, pack_codes_plain, window_prep, window_prep_plain,
+    MAX_WIDTH, PREP_FIELDS, pack_codes, pack_codes_plain, window_prep,
+    window_prep_plain,
 )
 from fulgor_tpu_torch.ops.pipeline import (
     query_conservation_packed, query_runs_tu_packed, query_window_csids_packed,
@@ -420,9 +433,10 @@ WIDE_PASSES, FORCED_T = 3, 3
 # (RA, RU), None for anchor_budget/reprobe_budget; timed passes a path
 STAGED_BUDGETS = ((2, 8, 4, 16), (1, 8, 4, 2))
 ANCHORED_BUDGETS = ((None, None), (4, 2))
-# (cut from three to two: the anchored passes take 10-14 s each on a slow
-# host, and the whole run must stay inside its clock)
-PROBE_PASSES = 2
+# (cut from three to two, the anchored ones to one: an anchored pass
+# takes 10-15 s on a slow host, and the whole run must stay inside its
+# clock)
+PROBE_PASSES, ANCHORED_PASSES = 2, 1
 # phase 12: the v1 lookup's candidate budgets (4, its default, is timed),
 # and its long reads cut from the unitig text
 V1_CANDIDATES = (4, 8)
@@ -434,6 +448,17 @@ V1_LONG_READS, V1_LONG_LEN = 64, 3000
 K2_EDGE_BUDGETS = ((0, 2), (20, 4))
 K3_EDGE = ((1, 1), (1, 1024), (143, 1), (143, 1024), (8, 33), (17, 130))
 EDGE_READS = 777
+# K10's and K11's seeded edge batches (B, Wk) of reads cut from the first
+# PROBE_EDGE_BASES bases of the unitig text (Wk + K - 1 bases; past
+# MAX_WIDTH in two pieces, as the engine cuts a long read), and an
+# all-heavy batch of EDGE_READS text reads at Wk 130; their budgets, "Wk"
+# for the batch's Wk (K11's (None, None) its defaults)
+PROBE_EDGE = ((EDGE_READS, 1), (EDGE_READS, 31), (EDGE_READS, 33),
+              (EDGE_READS, 130), (EDGE_READS, 1024), (1, 130), (7, 130),
+              (40_000, 130))
+STAGED_EDGE = ((2, 8, 4, 16), (0, 8, 4, 1), (2, 8, 4, "Wk"))
+ANCHORED_EDGE = ((None, None), (1, 1), ("Wk", "Wk"))
+PROBE_EDGE_BASES = 4_000_000
 # K12's seeded edge batches (C32, R) of EDGE_READS reads, with K6's int16
 # counts and with int32 ones, and the length of their npos table; K7's
 # edge shapes (k, W) of EDGE_READS reads, k = 15 on a table of the
@@ -666,32 +691,71 @@ def parent_library(parent):
     an earlier commit unpacked with git archive), built from its csrc/
     into its own _build/ and bound as this one: its K2-K5, K7 and K12 are
     timed in turns with this tree's (in_turns), and its kernels drive TU,
-    kmer-matches, the mesh's TU and kmer-matches and cuckoo FI passes in
-    turns with this tree's (passes_in_turns). The C entry points of both
-    trees must take the same arguments."""
+    kmer-matches, the mesh's TU and kmer-matches, cuckoo FI and staged FI
+    passes in turns with this tree's (passes_in_turns). The C entry points
+    of both trees must take the same arguments, but for K10's and K11's,
+    which the parent's own wrappers launch (parent_probes)."""
     pkg = os.path.join(os.path.abspath(parent), "fulgor_tpu_torch")
     lib = os.path.join(pkg, "_build", "libfulgor_kernels.so")
     t0 = time.perf_counter()
     text = kernels.build(os.path.join(pkg, "csrc"), lib)
     log(f"[build] the parent's kernels ({parent}) built in "
-        f"{time.perf_counter() - t0:.2f} s; its K2-K5, K7 and K12:")
+        f"{time.perf_counter() - t0:.2f} s; its K2-K5, K7, K10-K12:")
     log_resources("build", text, ("probe.cu", "intersect.cu", "union.cu",
-                                  "cuckoo.cu"))
+                                  "cuckoo.cu", "staged.cu", "anchored.cu"))
     return kernels.bind(ct.CDLL(lib))
+
+
+# the parent's K10 and K11 wrappers (parent_probes), which the engine's
+# pipeline takes inside using_library(parent)
+PARENT_PROBES = None
+
+
+def parent_probes(parent):
+    """DIR's own ops/staged.py and ops/anchored.py (their C entries take
+    other arguments than this tree's), imported as a package of their own
+    whose kernel library is the one parent_library built from DIR's csrc
+    and whose launch counts are this tree's. -> (staged wrapper, anchored
+    wrapper)."""
+    import importlib
+    import importlib.util
+
+    pkg = os.path.join(os.path.abspath(parent), "fulgor_tpu_torch")
+    name = "parent_fulgor_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    importlib.import_module(f"{name}.ops.kernels").launches = kernels.launches
+    return (importlib.import_module(f"{name}.ops.staged")
+            .minidict2_staged_probe,
+            importlib.import_module(f"{name}.ops.anchored")
+            .minidict2_anchored_probe)
 
 
 @contextlib.contextmanager
 def using_library(lib):
     """Launch every wrapper's kernel from `lib` inside the block (the
-    parent's, for timing in turns), the launch counts as ever."""
+    parent's, for timing in turns), the launch counts as ever; the
+    pipeline's K10 and K11 are the parent's wrappers there (PARENT_PROBES)
+    when lib is not this tree's."""
     own = kernels.library()
+    probes = (pipeline_mod.minidict2_staged_probe,
+              pipeline_mod.minidict2_anchored_probe)
     with kernels._lock:
         kernels._lib = lib
+    if PARENT_PROBES is not None and lib is not own:
+        (pipeline_mod.minidict2_staged_probe,
+         pipeline_mod.minidict2_anchored_probe) = PARENT_PROBES
     try:
         yield
     finally:
         with kernels._lock:
             kernels._lib = own
+        (pipeline_mod.minidict2_staged_probe,
+         pipeline_mod.minidict2_anchored_probe) = probes
 
 
 def phase_index(tmp, genomes, num_reads, seed):
@@ -2094,7 +2158,125 @@ def staged_tiers(prep, stage_a, vb1, RU):
             max(0, n_heavy - max(1, B // 8)))
 
 
-def phase_probe_kernels(eng, codes):
+def edge_probe_reads(rng, text, B, L, all_text=False):
+    """B seeded reads of L bases: three in four cut from the text `text`
+    (every fifth of those with an N), the rest random, the first B // 4 (at
+    most 16) all N (no usable window); with all_text every read cut from
+    the text, no N."""
+    chunk = rng.integers(0, 4, (B, L)).astype(np.uint8)
+    for b in range(B):
+        if all_text or b % 4 != 3:
+            p = int(rng.integers(0, len(text) - L))
+            chunk[b] = text[p: p + L]
+            if not all_text and b % 5 == 4:
+                chunk[b, rng.integers(0, L)] = 4
+    if not all_text:
+        chunk[: min(16, B // 4)] = 4
+    return chunk
+
+
+def edge_probe_prep(chunk, dev):
+    """The window prep of a (B, L) batch of codes, (B, L - K + 1): one
+    window_prep at the next multiple of 32 bases, cut to its first L - K + 1
+    windows (a window's fields are its own bases'); past MAX_WIDTH bases two
+    pieces overlapping by K - 1, as the engine cuts a long read, the
+    second's absolute positions pL and pR moved by its offset."""
+    B, L = chunk.shape
+    if L > MAX_WIDTH:
+        step = MAX_WIDTH - K + 1
+        a = edge_probe_prep(chunk[:, :MAX_WIDTH], dev)
+        b = list(edge_probe_prep(chunk[:, step:], dev))
+        for f in ("pL", "pR"):
+            b[PREP_FIELDS.index(f)] = b[PREP_FIELDS.index(f)] + step
+        return tuple(torch.cat([x, y], dim=1) for x, y in zip(a, b))
+    W = -(-L // 32) * 32
+    pad = np.full((B, W), 4, dtype=np.uint8)
+    pad[:, :L] = chunk
+    c2, bd = (torch.from_numpy(a).to(dev) for a in pack_reads_host(pad))
+    prep = window_prep(c2, bd, width=W, k=K, m=M)
+    return tuple(t[:, : L - K + 1].contiguous() for t in prep)
+
+
+def check_probe_edges(eng, text):
+    """K10 at STAGED_EDGE and K11 at ANCHORED_EDGE on PROBE_EDGE's seeded
+    batches and an all-heavy one, bit for bit (tolerance 0) against their
+    plain versions; hit and ovf never both. Each batch logs its reads with
+    no usable window; K10 its light, heavy and past-B2 reads (every read
+    of the all-heavy batch heavy at (0, 8, 4, 1)), K11 its reads with more
+    runs than RA. Raises unless the batches hold each of these somewhere.
+    -> (K10's max_abs_err, K11's)."""
+    tabs = eng.table
+    m, num_slots = eng.dparams
+    kw = dict(k=K, m=m, num_slots=num_slots)
+    rng = np.random.default_rng(EDGE_READS + 10)
+    batches = [(B, Wk, False) for B, Wk in PROBE_EDGE] + [
+        (EDGE_READS, 130, True)]
+    seen = dict.fromkeys(("no usable window", "runs past RA", "heavy",
+                          "heavy past BH"), 0)
+    err10 = err11 = 0
+    t0 = time.perf_counter()
+    for B, Wk, all_text in batches:
+        prep = edge_probe_prep(
+            edge_probe_reads(rng, text, B, Wk + K - 1, all_text), eng.device)
+        usable = prep[PREP_FIELDS.index("usable")]
+        bare = int((~usable.any(dim=1)).sum())
+        seen["no usable window"] += bare
+        what = (f"B = {B}, Wk = {Wk}" + (", all heavy" if all_text else "")
+                + f", {bare} reads with no usable window")
+        for vb1, vb2, sc, ru in STAGED_EDGE:
+            ru = Wk if ru == "Wk" else ru
+            bkw = dict(vb1=vb1, vb2=vb2, sc=sc, RU=ru, **kw)
+            got = minidict2_staged_probe(*tabs, prep, **bkw)
+            want = minidict2_staged_probe_plain(*tabs, prep, **bkw)
+            torch.cuda.synchronize()
+            e = max_abs_err(got, want)
+            err10 = max(err10, e)
+            light, heavy, past = staged_tiers(prep, minidict2_probe(
+                *tabs, prep, vb=vb1, stage1=True, **kw), vb1, ru)
+            seen["heavy"] += heavy
+            seen["heavy past BH"] += past
+            log(f"[probes] staged_probe edge batch ({what}) at ({vb1}, "
+                f"{vb2}, {sc}, {ru}): {light} light reads with undecided "
+                f"windows, {heavy} heavy, {past} past the "
+                f"{max(1, B // 8)}-read B2 sub-batch; {int(got[0].sum())} "
+                f"hits, {int(got[2].sum())} ovf; max_abs_err {e}")
+            if e or (got[0] & got[2]).any():
+                raise RuntimeError("staged_probe disagrees with its plain "
+                                   "version on an edge batch")
+            if all_text and (vb1, ru) == (0, 1) and heavy != B:
+                raise RuntimeError(f"the all-heavy batch has {heavy} heavy "
+                                   f"reads of {B}")
+        is_start, _end = _run_bounds(usable, prep[PREP_FIELDS.index("pL")],
+                                     prep[PREP_FIELDS.index("pR")])
+        runs = is_start.sum(dim=1)
+        for RA, RU in ANCHORED_EDGE:
+            RA, RU = (Wk if v == "Wk" else v for v in (RA, RU))
+            got = minidict2_anchored_probe(*tabs, prep, RA=RA, RU=RU, **kw)
+            want = minidict2_anchored_probe_plain(*tabs, prep, RA=RA, RU=RU,
+                                                  **kw)
+            torch.cuda.synchronize()
+            e = max_abs_err(got, want)
+            err11 = max(err11, e)
+            ra = anchor_budget(Wk, K, M) if RA is None else RA
+            past = int((runs > ra).sum())
+            seen["runs past RA"] += past
+            log(f"[probes] anchored_probe edge batch ({what}) at (RA, RU) = "
+                f"({ra}, {reprobe_budget(Wk, K, M) if RU is None else RU}): "
+                f"{past} reads with more runs than RA (at most "
+                f"{int(runs.max())}), {int(got[0].sum())} hits, "
+                f"{int(got[2].sum())} ovf in {int(got[2].any(dim=1).sum())} "
+                f"reads; max_abs_err {e}")
+            if e or (got[0] & got[2]).any():
+                raise RuntimeError("anchored_probe disagrees with its plain "
+                                   "version on an edge batch")
+    log(f"[probes] K10/K11 edge batches: {seen} over {len(batches)} "
+        f"batches, all bit for bit, in {time.perf_counter() - t0:.1f} s")
+    if not all(seen.values()):
+        raise RuntimeError(f"the probes' edge batches miss a case: {seen}")
+    return err10, err11
+
+
+def phase_probe_kernels(eng, idx, codes):
     """K2's two modes, K10 at STAGED_BUDGETS and K11 at ANCHORED_BUDGETS
     against their plain versions, bit for bit, on phase 4's batch; the
     contracts against K2 (K10's decided windows equal K2 at (8, 4), K11's
@@ -2185,43 +2367,182 @@ def phase_probe_kernels(eng, codes):
             raise RuntimeError("anchored_probe disagrees with its plain "
                                "version or with minidict2_probe")
 
-    # times: each probe whole, as the main path calls it
+    # the edge batches
+    t_edge = time.perf_counter()
+    offs = idx.unitig_offs
+    nb = int(offs[min(np.searchsorted(offs, PROBE_EDGE_BASES),
+                      len(offs) - 1)])
+    e10, e11 = check_probe_edges(eng, unpack2(idx.unitig_seq[: (nb + 31)
+                                                             // 32], nb))
+    err10, err11 = max(err10, e10), max(err11, e11)
+    log(f"[probes] edge batches on {nb} bases of text: "
+        f"{time.perf_counter() - t_edge:.1f} s")
+
+    # times: each probe whole, as the main path calls it, and its own
+    # kernels, with their byte bounds
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    minval = u32(prep[PREP_FIELDS.index("minval")])[usable]
-    slot_rows = torch.unique(mulhi32(mix32(minval), num_slots) >> 3).numel()
     vb1, vb2, sc, ru = STAGED_BUDGETS[0]
+    RA, RU = anchor_budget(Wk, K, M), reprobe_budget(Wk, K, M)
+    stage_a = minidict2_probe(*tabs, prep, vb=vb1, stage1=True, **kw)
+    p10, p11 = (None, None) if PARENT_PROBES is None else PARENT_PROBES
     probes = (
-        ("staged_probe", "staged.cu", 1356, 0,
+        ("staged_probe", "staged.cu", 1356, 0, vb1,
+         staged_stage_bytes(prep, stage_a, vb1, ru, tabs, kw),
          lambda: minidict2_staged_probe(*tabs, prep, vb1=vb1, vb2=vb2, sc=sc,
                                         RU=ru, **kw),
+         p10 and (lambda: p10(*tabs, prep, vb1=vb1, vb2=vb2, sc=sc, RU=ru,
+                              **kw)),
          lambda: minidict2_staged_probe_plain(*tabs, prep, vb1=vb1, vb2=vb2,
                                               sc=sc, RU=ru, **kw), err10),
         # K11 also reads pL and pR
-        ("anchored_probe", "anchored.cu", 1500, 8,
+        ("anchored_probe", "anchored.cu", 1500, 8, VERIFY_BUDGET,
+         anchored_stage_bytes(prep, RA, RU),
          lambda: minidict2_anchored_probe(*tabs, prep, **kw),
+         p11 and (lambda: p11(*tabs, prep, **kw)),
          lambda: minidict2_anchored_probe_plain(*tabs, prep, **kw), err11))
     rows = []
-    for name, src, line, extra, fn, plain, err in probes:
+    for name, src, line, extra, vb, stages, fn, parent_fn, plain, err in (
+            probes):
         names = (name, "minidict2_probe")
-        ms, stream_ms, per = call_ms(fn, names, REPS_KERNEL, flush)
-        warm, warm_stream, _p = call_ms(fn, names, REPS_KERNEL)
-        log(f"[probes] {name}: a call's kernels {ms:.4f} ms of device time "
-            f"cold L2 (each kernel's ms a call: {per}), {warm:.4f} warm; on "
-            f"the stream, launch gaps included, {stream_ms:.4f} ms cold L2, "
-            f"{warm_stream:.4f} back to back")
+        if parent_fn is None:
+            ms, stream_ms, per = call_ms(fn, names, REPS_KERNEL, flush)
+            warm, warm_stream, _p = call_ms(fn, names, REPS_KERNEL)
+            log(f"[probes] {name}: a call's kernels {ms:.4f} ms of device "
+                f"time cold L2, {warm:.4f} warm; on the stream, launch gaps "
+                f"included, {stream_ms:.4f} ms cold L2, {warm_stream:.4f} "
+                "back to back")
+        else:
+            ms, warm, per = probe_in_turns(name, names, fn, parent_fn, flush)
+        # the call's bound: K2's count of every lane (k2_bytes: prep, hit,
+        # csid and ovf, slot rows, the text rows of the first min(vb, cnt)
+        # candidates a lane, the skew pointer rows of gated lanes) and the
+        # fields only this probe reads
+        kb, old, trows, gated = k2_bytes(tabs, prep, kw, vb)
+        nbytes = kb + lanes * extra
+        log(f"[probes] {name}'s bound: {nbytes / 1e6:.1f} MB, "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms with {trows} text rows "
+            f"(the first min({vb}, cnt) candidates a lane) and {gated} "
+            f"gated lanes' pointer rows; {(old + lanes * extra) / 1e6:.1f} "
+            f"MB, {(old + lanes * extra) / HBM_BYTES_PER_S * 1e3:.4f} ms "
+            "without them (the earlier count)")
+        for kname, b in stages.items():
+            # a template's instances: the name without its arguments
+            t = sum(v for k, v in per.items()
+                    if k == kname or k.split("<")[0] == kname)
+            bound = b / HBM_BYTES_PER_S * 1e3
+            log(f"[probes] {name} stage {kname}: "
+                + (f"{t:.4f} ms a call cold L2, " if t else "not recorded, ")
+                + f"bound {bound:.4f} ms ({b / 1e6:.2f} MB)"
+                + (f", {bound / t:.1%} of it" if t else ""))
         rows.append(dict(
             name=name, source=f"fulgor_tpu_torch/csrc/{src}",
             replaces=f"fulgor_tpu/ops/minidict2.py:{line}", max_abs_err=err,
             ms=ms, warm_ms=warm, plain_ms=time_ms(plain, REPS_PLAIN),
-            # the probe's prep fields read once, hit/csid/ovf written, one
-            # 96-byte slot row a distinct bucket row: K2's shorter count,
-            # without the text rows (k2_bytes)
-            bytes=lanes * (7 * 4 + 3 + extra) + lanes * 6 + slot_rows * 96,
-            ops=lanes * 120))
+            bytes=nbytes, ops=lanes * 120))
     del flush
     for r in rows:
         finish_row(r, "probes")
     return err2, rows
+
+
+def probe_in_turns(name, names, fn, parent_fn, flush):
+    """A probe's call timed (call_ms) in turns with the parent's wrapper of
+    it: parent, this, this, parent, each cold L2 and warm; logs each
+    turn's kernels and the two trees' own kernels (K2's launches left out).
+    -> this tree's (cold ms, warm ms, {kernel: cold ms a call}), the means
+    of its two turns."""
+    turns = {"this": [], "parent": []}
+    for who in ("parent", "this", "this", "parent"):
+        f = fn if who == "this" else parent_fn
+        cold, stream, per = call_ms(f, names, REPS_KERNEL, flush)
+        warm, _s, _p = call_ms(f, names, REPS_KERNEL)
+        turns[who].append((cold, warm, stream, per))
+        own = sum(v for k, v in per.items() if k.startswith(name))
+        log(f"[probes] {name}, {who} tree's turn: a call's kernels "
+            f"{cold:.4f} ms cold L2 ({warm:.4f} warm), on the stream "
+            f"{stream:.4f}; its own kernels {own:.4f} ms; {per}")
+    new = statistics.mean(t[0] for t in turns["this"])
+    old = statistics.mean(t[0] for t in turns["parent"])
+
+    def own(who):
+        return statistics.mean(sum(v for k, v in t[3].items()
+                                   if k.startswith(name))
+                               for t in turns[who])
+    log(f"[probes] {name} in turns (parent, this, this, parent): this tree "
+        f"{new:.4f} ms a call cold L2, the parent's {old:.4f}: "
+        f"{old / new:.2f}x; own kernels {own('this'):.4f} against "
+        f"{own('parent'):.4f} ({own('parent') / own('this'):.2f}x)")
+    per = {}
+    for t in turns["this"]:
+        for k, v in t[3].items():
+            per[k] = per.get(k, 0.0) + v / len(turns["this"])
+    return new, statistics.mean(t[1] for t in turns["this"]), per
+
+
+def staged_stage_bytes(prep, stage_a, vb1, RU, tabs, kw):
+    """The bytes each of K10's own kernels must move at (vb1, RU) on one
+    batch, and stage A's (K2's stage1 mode, k2_bytes) -> {kernel: bytes}.
+    The split reads usable, hit, need (1 B) and cnt (4 B) a window, reads
+    the 30 B of inputs of a light read's undecided windows and writes their
+    31 B lanes, the usable flags of B1's other lanes, the undecided masks
+    and the heavy words; the gather reads the heavy words and, for each of
+    the first BH heavy reads, its mask and undecided windows' inputs, and
+    writes its row (31 B a lane taken, 1 B else, past the heavy reads 1 B
+    a lane) and the words' prefixes; the merge reads stage A's hit and
+    csid, the masks, heavy words and prefixes, the tiers' 6 B of each
+    undecided window a tier answers, and writes 6 B a window."""
+    usable = prep[PREP_FIELDS.index("usable")]
+    hit, _csid, cnt, need = stage_a
+    B, Wk = usable.shape
+    lanes, nw, nh = B * Wk, (Wk + 31) // 32, (B + 31) // 32
+    RU, BH = min(RU, Wk), max(1, B // 8)
+    nU = (usable & ~hit & ((cnt > vb1) | need)).sum(dim=1)
+    heavy = nU > RU
+    light = int(nU[~heavy].sum())
+    rows = nU[heavy][:BH]
+    used, und_h = rows.numel(), int(rows.sum())
+    return {
+        "minidict2_probe_kernel<true, false>": k2_bytes(
+            tabs, prep, kw, vb1, out_bytes=10, skew=False)[0],
+        "staged_probe_split_kernel": (lanes * 7 + light * 61
+                                      + (B * RU - light) + B * nw * 4
+                                      + nh * 4),
+        "staged_probe_gather_kernel": (nh * 8 + used * nw * 4 + und_h * 61
+                                       + used * Wk - und_h
+                                       + (BH - used) * Wk),
+        "staged_probe_merge_kernel": (lanes * 5 + B * nw * 4 + nh * 8
+                                      + (light + und_h) * 6 + lanes * 6)}
+
+
+def anchored_stage_bytes(prep, RA, RU):
+    """The bytes each of K11's own kernels must move at (RA, RU) on one
+    batch -> {kernel: bytes}: counts that the prep alone fixes, so the
+    extension's text rows and the undecided windows' lanes (taken by the
+    extension, answered in the merge) are left out. The anchors kernel
+    reads usable (1 B a window) and pL, pR of usable windows (8 B), reads
+    the 30 B of inputs of each anchor lane it takes and writes them, the 2
+    RA usable flags a read and the run-start and run-end masks; the
+    extension reads the masks, its used anchors' 19 B of K2 results, flo..
+    rhi (16 B) of each window in its first RA runs, writes 6 B a window,
+    RU usable flags a read and the undecided masks; the merge reads the
+    masks."""
+    usable = prep[PREP_FIELDS.index("usable")]
+    B, Wk = usable.shape
+    lanes, nw = B * Wk, (Wk + 31) // 32
+    is_start, is_end = _run_bounds(usable, prep[PREP_FIELDS.index("pL")],
+                                   prep[PREP_FIELDS.index("pR")])
+    runid = torch.cumsum(is_start, dim=1) - 1
+    n_a = int(is_start.sum(dim=1).clamp(max=RA).sum())
+    taken = n_a + int((is_start & ~is_end & (runid < RA)).sum())
+    in_run = int((usable & (runid < RA)).sum())
+    return {
+        "anchored_probe_anchors_kernel": (lanes + int(usable.sum()) * 8
+                                          + taken * 60 + B * 2 * RA
+                                          + B * nw * 8),
+        "anchored_probe_extend_kernel": (B * nw * 8 + n_a * 2 * 19
+                                         + in_run * 16 + lanes * 6 + B * RU
+                                         + B * nw * 4),
+        "anchored_probe_merge_kernel": B * nw * 4}
 
 
 def k3_bytes(hit, csid, C32) -> int:
@@ -2551,17 +2872,19 @@ def phase_k2_to_k5(eng, wide, codes, reads, parent):
     return err2, err3, err4, err5
 
 
-def phase_probes(idx, eng, reads, tmp, fi, tu):
+def phase_probes(idx, eng, reads, tmp, fi, tu, parent):
     """The two opt-in probes end to end: FI and TU(TAU) under the staged
     probe (FULGOR_PROBE_BUDGET at STAGED_BUDGETS[0], a new engine) and
     under the anchored one (pipeline.ANCHORED_PROBE on the mini engine,
-    restored after): each a warm-up, PROBE_PASSES timed passes and a
-    profiled pass to a file, which must hold phase 5's FI or phase 6's TU
-    records. The staged passes take turns with as many one-pass passes of
+    restored after): each a warm-up, PROBE_PASSES timed passes
+    (ANCHORED_PASSES anchored) and a profiled pass to a file, which must
+    hold phase 5's FI or phase 6's TU records. The staged passes take turns with as many one-pass passes of
     the same tool, so that the two rates come from the same stretch of the
     host's time (its speed drifts within a call); the anchored ones, 4-7x
-    slower, are set against phases 5-6's medians. -> {path: (launches,
-    median reads/s)}."""
+    slower, are set against phases 5-6's medians. With `parent`, one staged
+    FI pass also in turns with the parent's kernels, its K10 and K11 by
+    the parent's wrappers (passes_in_turns). -> {path: (launches, median
+    reads/s)}."""
     budget = ",".join(map(str, STAGED_BUDGETS[0]))
     os.environ["FULGOR_PROBE_BUDGET"] = budget
     try:
@@ -2593,9 +2916,11 @@ def phase_probes(idx, eng, reads, tmp, fi, tu):
                         r, _st, launches = timed_passes(path, fn, 1)
                         rates += r
                     one_pass, where = statistics.median(base), "in turns"
+                    if tool == "fi":
+                        passes_in_turns("probes", path, fn, parent)
                 else:
                     rates, _st, launches = timed_passes(path, fn,
-                                                        PROBE_PASSES)
+                                                        ANCHORED_PASSES)
                 f = os.path.join(tmp, f"{path}.tsv")
                 timed_passes(path, lambda fn=fn, f=f, path=path: profiled_pass(
                     path, lambda: fn(f)), 1)
@@ -3219,15 +3544,18 @@ def main():
     ap.add_argument("--parent", metavar="DIR",
                     help="a checkout of an earlier commit (git archive into "
                     "a directory .gitignore lists): its kernels are built "
-                    "and K2-K5, K7 and K12 timed in turns with this tree's "
-                    "(phases 4, 10b, 11), and TU, kmer-matches, the mesh's "
-                    "TU and kmer-matches and cuckoo FI passes run in turns "
-                    "on both")
+                    "and K2-K5, K7, K10-K12 timed in turns with this tree's "
+                    "(phases 4, 10, 10b, 11), and TU, kmer-matches, the "
+                    "mesh's TU and kmer-matches, cuckoo FI and staged FI "
+                    "passes run in turns on both")
     args = ap.parse_args()
     t_start = time.perf_counter()
     card = phase_device()
     phase_build()
     parent = parent_library(args.parent) if args.parent else None
+    if args.parent:
+        global PARENT_PROBES
+        PARENT_PROBES = parent_probes(args.parent)
     tmp = tempfile.mkdtemp(prefix="fulgor_smoke_")
     try:
         idx, codes, names, reads = phase_index(tmp, args.genomes, args.reads,
@@ -3265,7 +3593,7 @@ def main():
         array = phase_array(eng, ceng, codes, fi, tu, mirror)
         wide = phase_wide(idx, eng, codes, reads, tmp, array, mirror)
         rows.append(wide["row"])
-        err2, probe_rows = phase_probe_kernels(eng, codes)
+        err2, probe_rows = phase_probe_kernels(eng, idx, codes)
         rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], err2)
         errs = dict(zip(("minidict2_probe", "fi_and", "tu_mask",
                          "km_scores"),
@@ -3274,7 +3602,7 @@ def main():
         for r in rows:
             r["max_abs_err"] = max(r["max_abs_err"], errs.get(r["name"], 0))
         rows += probe_rows
-        probes = phase_probes(idx, eng, reads, tmp, fi, tu)
+        probes = phase_probes(idx, eng, reads, tmp, fi, tu, parent)
         rows += phase_mesh_kernels(eng, wide["index"], codes, parent)
         mesh = phase_mesh(eng, ceng.idx, wide["index"], reads, codes, tmp,
                           fi, tu, km, kc, dedup, array, wide["out"], parent)

@@ -11,32 +11,51 @@
 //             need_sec; a window is undecided where it is usable, missed
 //             and either had more than vb1 candidates or needs the skew
 //             table;
-//   split     (this file) one warp a read: nU = its undecided windows,
-//             heavy = nU > RU; each window's tag (-1 decided, its rank
-//             among the read's undecided windows in a light read, -2 in a
-//             heavy one); a light read's undecided windows compacted into
-//             its RU lanes of tier B1, their ten K2 inputs gathered;
-//   rank      (this file) one block: hrank = the exclusive prefix count of
-//             heavy over the batch, in read order, and posH, the first
-//             BH = max(1, B / 8) heavy reads;
-//   gather    (this file) a thread a (row, window) of tier B2: the heavy
-//             read's inputs, usable where the window is undecided;
+//   split     (this file) one warp a read, 32 reads a block: the read's
+//             undecided mask (one bit a window), heavy = more than RU
+//             undecided windows (one bit a read, a word a block); a light
+//             read's undecided windows compacted into its RU lanes of tier
+//             B1, their ten K2 inputs gathered;
+//   gather    (this file) every block scans the batch's heavy words (the
+//             h-th heavy read in read order is posH[h]) and takes its own
+//             rows of tier B2, the first BH = max(1, B / 8) heavy reads, a
+//             warp a row: the heavy read's inputs, usable where the window
+//             is undecided; block 0 also writes each heavy word's prefix
+//             count;
 //   B1, B2    K2 at (vb2, sc) on the (B, RU) and (BH, Wk) lanes;
-//   merge     (this file) a thread a window: stage A's result, B1's lane,
+//   merge     (this file) one warp a read: stage A's result, B1's lane,
 //             B2's row, or ovf for a heavy read past BH.
 //
 // What bounds it: bytes. Stage A reads the prep and the slot rows as K2
-// does; the split reads stage A's 10 B a window twice (the second pass
-// hits L1/L2) and writes a 4 B tag; B1 and B2 add K2 passes over
+// does; the split reads stage A's 7 B a window once, and gathers the
+// undecided windows of light reads; the gather reads the heavy reads'
+// inputs; the merge reads stage A's hit and csid and the tiers' lanes of
+// undecided windows, and writes 6 B a window. B1 and B2 add K2 passes over
 // B RU + BH Wk lanes whether or not they are used, as in the reference.
 // Every step runs on the card, and no size is read back: all shapes are
 // fixed by (B, Wk, RU).
 //
-// Design: the reference's popcount ranks (mask_positions) become warp
-// ballots, one warp a read; the cross-batch rank is one block's scan, so
-// that heavy reads keep read order (atomics would not); the merge is a
-// gather from the tag, no scatter. Lanes that are not usable get only
-// their usable flag written: K2 reads nothing else of them.
+// What held the first design back: the split read stage A's four
+// arrays twice (one pass counted, one ranked) and wrote a 4 B tag a
+// window; the batch's heavy ranks came from one block whose threads each
+// walked B / 1,024 reads in series with byte loads and strided stores;
+// the gather and merge took a thread a window with 64-bit divisions.
+//
+// Design (K3-K5's warp a read): a lane takes a window, the four stage A
+// loads of up to kGroup passes of 32 windows out together; word c of a
+// read's undecided mask is kept by lane c (Wk <= 1,024), so a window's
+// rank among the read's undecided windows is a prefix popcount, and a
+// lane takes a B1 lane, its window the r-th set bit (warp_select), so B1
+// is written coalesced. The cross-batch rank of a heavy read is its
+// word's prefix plus a popcount, from one coalesced scan of B / 32 words
+// that each gather block repeats (4 KB at B = 32,768, from L2), so that
+// the rank needs no launch of its own and heavy reads keep read order
+// (atomics would not); a warp takes a B2 row. Lanes that are not usable
+// get only their usable flag written: K2 reads nothing else of them.
+//
+// What holds it now: the split's and the merge's trips to memory, one or
+// two a read, with few reads a wave in flight; the gather's blocks each
+// scanning the heavy words before their row.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -48,212 +67,247 @@ namespace {
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kWarps = 8;
-constexpr int kThreads = 256;
-constexpr int kRankThreads = 1024;
-constexpr int kDecided = -1;
-constexpr int kHeavy = -2;
+constexpr int kThreads = kWarps * 32;
+// the split: a read a warp, a heavy word a block
+constexpr int kSplitThreads = 1024;
 
+// the window's four stage A values loaded together, not one after another
 __device__ __forceinline__ bool undecided(const uint8_t* usable,
                                           const uint8_t* hit,
                                           const int32_t* cnt,
                                           const uint8_t* need, long long i,
                                           int vb1) {
-  return usable[i] && !hit[i] && (cnt[i] > vb1 || need[i]);
+  const uint8_t u = __ldg(usable + i), h = __ldg(hit + i), n = __ldg(need + i);
+  const int32_t c = __ldg(cnt + i);
+  return u && !h && (c > vb1 || n);
 }
 
-__global__ void __launch_bounds__(kThreads) staged_probe_split_kernel(
+__global__ void __launch_bounds__(kSplitThreads) staged_probe_split_kernel(
     fulgor::Lanes in, const uint8_t* __restrict__ hitA,
     const int32_t* __restrict__ cnt, const uint8_t* __restrict__ need,
     int B, int Wk, int vb1, int RU, fulgor::Lanes outU,
-    int32_t* __restrict__ tag, uint8_t* __restrict__ heavy) {
-  const int lane = threadIdx.x & 31;
-  const long long b =
-      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (b >= B) return;  // the whole warp leaves together
-  const long long row = b * Wk;
-  int nU = 0;
-  for (int w0 = 0; w0 < Wk; w0 += 32) {
-    const int w = w0 + lane;
-    const bool u = w < Wk && undecided(in.usable(), hitA, cnt, need, row + w, vb1);
-    nU += __popc(__ballot_sync(kFull, u));
-  }
-  const bool hv = nU > RU;
-  if (lane == 0) heavy[b] = hv;
-  int r0 = 0;
-  for (int w0 = 0; w0 < Wk; w0 += 32) {
-    const int w = w0 + lane;
-    const bool u = w < Wk && undecided(in.usable(), hitA, cnt, need, row + w, vb1);
-    const unsigned bal = __ballot_sync(kFull, u);
-    const int r = r0 + __popc(bal & ((1u << lane) - 1u));
-    r0 += __popc(bal);
-    if (w < Wk) tag[row + w] = !u ? kDecided : (hv ? kHeavy : r);
-    if (u && !hv) {
-      const long long d = b * RU + r;
-      outU.take(in, row + w, d);
-      outU.usable()[d] = 1;
+    uint32_t* __restrict__ umask, uint32_t* __restrict__ heavy) {
+  __shared__ int heavy_sh[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * 32 + warp;
+  bool hv = false;
+  if (b < B) {  // the whole warp; no early return before the barrier
+    const int nw = (Wk + 31) >> 5;
+    const long long row = static_cast<long long>(b) * Wk;
+    uint32_t uw = 0;  // lane c keeps word c of the undecided mask
+    for (int c0 = 0; c0 < nw; c0 += fulgor::kGroup) {
+      bool u[fulgor::kGroup];
+#pragma unroll
+      for (int g = 0; g < fulgor::kGroup; ++g) {
+        const int w = (c0 + g) * 32 + lane;
+        u[g] = w < Wk &&
+               undecided(in.usable(), hitA, cnt, need, row + w, vb1);
+      }
+#pragma unroll
+      for (int g = 0; g < fulgor::kGroup; ++g) {
+        if (c0 + g >= nw) break;  // the whole warp
+        const uint32_t bal = __ballot_sync(kFull, u[g]);
+        if (lane == c0 + g) uw = bal;
+      }
     }
+    int nU;
+    const int pre = fulgor::warp_exclusive_sum(__popc(uw), &nU);
+    hv = nU > RU;
+    const long long lanes = static_cast<long long>(b) * RU;
+    if (!hv) {  // a lane a tier B1 lane: its window the r-th undecided
+      for (int r0 = 0; r0 < nU; r0 += 32) {
+        const int r = r0 + lane;
+        const int w = fulgor::warp_select(uw, pre, nw, r < nU ? r : 0);
+        if (r < nU) {
+          outU.take(in, row + w, lanes + r);
+          outU.usable()[lanes + r] = 1;
+        }
+      }
+    }
+    for (int r = (hv ? 0 : nU) + lane; r < RU; r += 32)
+      outU.usable()[lanes + r] = 0;
+    if (lane < nw) umask[static_cast<long long>(b) * nw + lane] = uw;
   }
-  for (int r = (hv ? 0 : nU) + lane; r < RU; r += 32)
-    outU.usable()[b * RU + r] = 0;
+  if (lane == 0) heavy_sh[warp] = hv;
+  __syncthreads();
+  if (warp == 0) {
+    const uint32_t word = __ballot_sync(kFull, heavy_sh[lane] != 0);
+    if (lane == 0) heavy[blockIdx.x] = word;
+  }
 }
 
-// one block: hrank[b] = heavy reads before b; posH[h] = the h-th heavy
-// read for h < min(total, BH), 0 past it; *totH = total
-__global__ void __launch_bounds__(kRankThreads) staged_probe_rank_kernel(
-    const uint8_t* __restrict__ heavy, int B, int BH,
-    int32_t* __restrict__ hrank, int32_t* __restrict__ posH,
-    int32_t* __restrict__ totH) {
-  __shared__ int warp_sum[kRankThreads / 32];
-  __shared__ int total;
-  const int t = threadIdx.x, lane = t & 31, wid = t >> 5;
-  const int per = (B + kRankThreads - 1) / kRankThreads;
-  const int lo = t * per, hi = min(B, lo + per);
-  int local = 0;
-  for (int b = lo; b < hi; ++b) local += heavy[b];
-  int incl = local;
-  for (int d = 1; d < 32; d <<= 1) {
-    const int up = __shfl_up_sync(kFull, incl, d);
-    if (lane >= d) incl += up;
-  }
-  if (lane == 31) warp_sum[wid] = incl;
-  __syncthreads();
-  if (wid == 0) {
-    int s = lane < kRankThreads / 32 ? warp_sum[lane] : 0;
-    int si = s;
-    for (int d = 1; d < 32; d <<= 1) {
-      const int up = __shfl_up_sync(kFull, si, d);
-      if (lane >= d) si += up;
-    }
-    if (lane < kRankThreads / 32) warp_sum[lane] = si - s;  // exclusive
-    if (lane == 31) total = si;
-  }
-  __syncthreads();
-  int r = warp_sum[wid] + incl - local;
-  for (int b = lo; b < hi; ++b) {
-    hrank[b] = r;
-    if (heavy[b]) {
-      if (r < BH) posH[r] = b;
-      ++r;
-    }
-  }
-  for (int h = total + t; h < BH; h += kRankThreads) posH[h] = 0;
-  if (t == 0) *totH = total;
-}
-
-// a thread a (row h, window w) of tier B2
+// each block: the batch's heavy words scanned, then its kWarps rows of
+// tier B2 gathered, a warp a row; block 0 writes hpre, each heavy
+// word's prefix count
 __global__ void __launch_bounds__(kThreads) staged_probe_gather_kernel(
-    fulgor::Lanes in, const int32_t* __restrict__ tag,
-    const int32_t* __restrict__ posH, const int32_t* __restrict__ totH,
-    int Wk, int BH, fulgor::Lanes outH) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= static_cast<long long>(BH) * Wk) return;
-  const long long h = i / Wk, w = i % Wk;
-  if (h >= *totH) {
-    outH.usable()[i] = 0;
+    fulgor::Lanes in, const uint32_t* __restrict__ umask,
+    const uint32_t* __restrict__ heavy, int B, int Wk, int BH,
+    fulgor::Lanes outH, int32_t* __restrict__ hpre) {
+  __shared__ int warp_sum[kWarps];
+  __shared__ int pos[kWarps];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int nh = (B + 31) >> 5;
+  const int per = (nh + kThreads - 1) / kThreads;
+  const int lo = t * per, hi = lo + per < nh ? lo + per : nh;
+  int local = 0;
+  for (int j = lo; j < hi; ++j) local += __popc(heavy[j]);
+  int wsum;
+  const int excl = fulgor::warp_exclusive_sum(local, &wsum);
+  if (lane == 0) warp_sum[warp] = wsum;
+  __syncthreads();
+  int before = 0, total = 0;
+  for (int x = 0; x < kWarps; ++x) {
+    before += x < warp ? warp_sum[x] : 0;
+    total += warp_sum[x];
+  }
+  // this block's rows: the heavy reads ranked h0 .. h0 + kWarps - 1
+  const int h0 = blockIdx.x * kWarps;
+  int p = before + excl;
+  for (int j = lo; j < hi; ++j) {
+    uint32_t word = heavy[j];
+    const int n = __popc(word);
+    if (blockIdx.x == 0) hpre[j] = p;
+    if (p < h0 + kWarps && p + n > h0) {
+      for (int r = p; word; ++r, word &= word - 1)
+        if (r >= h0 && r < h0 + kWarps)
+          pos[r - h0] = j * 32 + __ffs(word) - 1;
+    }
+    p += n;
+  }
+  __syncthreads();
+
+  const int nw = (Wk + 31) >> 5;
+  // this warp's row: the heavy read ranked h0 + warp, or none past the
+  // batch's heavy reads
+  const int h = h0 + warp;
+  if (h >= BH) return;
+  const long long o = static_cast<long long>(h) * Wk;
+  if (h >= total) {
+    for (int w = lane; w < Wk; w += 32) outH.usable()[o + w] = 0;
     return;
   }
-  const long long s = static_cast<long long>(posH[h]) * Wk + w;
-  outH.take(in, s, i);
-  outH.usable()[i] = tag[s] == kHeavy;
+  const int b = pos[warp];
+  const long long s = static_cast<long long>(b) * Wk;
+  const uint32_t uw =
+      lane < nw ? umask[static_cast<long long>(b) * nw + lane] : 0u;
+#pragma unroll 4
+  for (int c = 0; c < nw; ++c) {
+    const uint32_t wc = __shfl_sync(kFull, uw, c);
+    const int w = c * 32 + lane;
+    if (w >= Wk) break;
+    const bool u = (wc >> lane) & 1;
+    if (u) outH.take(in, s + w, o + w);
+    outH.usable()[o + w] = u;
+  }
 }
 
-// a thread a window: the staged probe's result
+// one warp a read: the staged probe's result
 __global__ void __launch_bounds__(kThreads) staged_probe_merge_kernel(
     const uint8_t* __restrict__ hitA, const uint32_t* __restrict__ valA,
-    const int32_t* __restrict__ tag, const int32_t* __restrict__ hrank,
-    const uint8_t* __restrict__ hitU, const uint32_t* __restrict__ valU,
-    const uint8_t* __restrict__ ovfU, const uint8_t* __restrict__ hitH,
-    const uint32_t* __restrict__ valH, const uint8_t* __restrict__ ovfH,
-    int B, int Wk, int RU, int BH, uint8_t* __restrict__ hit,
-    uint32_t* __restrict__ csid, uint8_t* __restrict__ ovf) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= static_cast<long long>(B) * Wk) return;
-  const long long b = i / Wk, w = i % Wk;
-  const int t = tag[i];
-  bool h = false, o = false;
-  uint32_t v = fulgor::kInvalid;
-  if (t == kDecided) {
-    h = hitA[i];
-    v = valA[i];  // INVALID where stage A missed
-  } else if (t >= 0) {
-    const long long j = b * RU + t;
-    h = hitU[j];
-    v = valU[j];
-    o = ovfU[j];
-  } else {
-    const int r = hrank[b];
-    if (r < BH) {
-      const long long j = static_cast<long long>(r) * Wk + w;
-      h = hitH[j];
-      v = valH[j];
-      o = ovfH[j];
-    } else {
-      o = true;
+    const uint32_t* __restrict__ umask, const uint32_t* __restrict__ heavy,
+    const int32_t* __restrict__ hpre, const uint8_t* __restrict__ hitU,
+    const uint32_t* __restrict__ valU, const uint8_t* __restrict__ ovfU,
+    const uint8_t* __restrict__ hitH, const uint32_t* __restrict__ valH,
+    const uint8_t* __restrict__ ovfH, int B, int Wk, int RU, int BH,
+    uint8_t* __restrict__ hit, uint32_t* __restrict__ csid,
+    uint8_t* __restrict__ ovf) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (b >= B) return;  // the whole warp leaves together
+  const int nw = (Wk + 31) >> 5;
+  const uint32_t uw =
+      lane < nw ? umask[static_cast<long long>(b) * nw + lane] : 0u;
+  int nU;
+  const int pre = fulgor::warp_exclusive_sum(__popc(uw), &nU);
+  const uint32_t hw = heavy[b >> 5], hb = 1u << (b & 31);
+  const bool hv = hw & hb;
+  const int hr = hv ? hpre[b >> 5] + __popc(hw & (hb - 1u)) : 0;
+  const long long row = static_cast<long long>(b) * Wk;
+  const unsigned below = (1u << lane) - 1u;
+  for (int c = 0; c < nw; ++c) {
+    const uint32_t wc = __shfl_sync(kFull, uw, c);
+    const int p0 = __shfl_sync(kFull, pre, c);
+    const int w = c * 32 + lane;
+    if (w >= Wk) break;
+    const long long i = row + w;
+    // stage A's result (INVALID where it missed), or the window's tier's
+    bool h = __ldg(hitA + i), o = false;
+    uint32_t v = __ldg(valA + i);
+    if ((wc >> lane) & 1) {
+      long long j = -1;
+      if (!hv)
+        j = static_cast<long long>(b) * RU + p0 + __popc(wc & below);
+      else if (hr < BH)
+        j = static_cast<long long>(hr) * Wk + w;
+      const uint8_t* th = hv ? hitH : hitU;
+      const uint32_t* tv = hv ? valH : valU;
+      const uint8_t* to = hv ? ovfH : ovfU;
+      h = j >= 0 && th[j];
+      v = j >= 0 ? tv[j] : fulgor::kInvalid;
+      o = j < 0 || to[j];
     }
+    hit[i] = h;
+    csid[i] = h ? v : fulgor::kInvalid;
+    ovf[i] = o;
   }
-  hit[i] = h;
-  csid[i] = h ? v : fulgor::kInvalid;
-  ovf[i] = o;
+}
+
+bool bad_shape(int B, int Wk) {
+  return B <= 0 || Wk <= 0 || Wk > fulgor::kMaxWk ||
+         static_cast<long long>(B) * Wk >= (1LL << 31);
 }
 
 }  // namespace
 
-// split + rank + gather: everything between stage A and tiers B1/B2.
+// split + gather: everything between stage A and tiers B1/B2.
 // in/outU/outH: ten pointers each in K2's order (ops/probe.py
-// probe_lanes); outU (B, RU), outH (BH, Wk).
+// probe_lanes); outU (B, RU), outH (BH, Wk); umask (B, ceil(Wk / 32)) u32,
+// the undecided masks; heavy (ceil(B / 32),) u32, the heavy reads' bits;
+// hpre (ceil(B / 32),) int32, the heavy reads before each word.
 extern "C" int fulgor_staged_split(void* const* in, const void* hitA,
                                    const void* cnt, const void* need, int B,
                                    int Wk, int vb1, int RU, int BH,
                                    void* const* outU, void* const* outH,
-                                   void* tag, void* heavy, void* hrank,
-                                   void* posH, void* totH, void* stream) {
-  if (B <= 0 || Wk <= 0 || RU <= 0 || RU > Wk || BH <= 0 || vb1 < 0)
+                                   void* umask, void* heavy, void* hpre,
+                                   void* stream) {
+  if (bad_shape(B, Wk) || RU <= 0 || RU > Wk || BH <= 0 || vb1 < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const fulgor::Lanes lin = fulgor::make_lanes(in);
-  staged_probe_split_kernel<<<(B + kWarps - 1) / kWarps, kThreads, 0, s>>>(
+  staged_probe_split_kernel<<<(B + 31) / 32, kSplitThreads, 0, s>>>(
       lin, static_cast<const uint8_t*>(hitA), static_cast<const int32_t*>(cnt),
       static_cast<const uint8_t*>(need), B, Wk, vb1, RU,
-      fulgor::make_lanes(outU), static_cast<int32_t*>(tag),
-      static_cast<uint8_t*>(heavy));
-  cudaError_t e = cudaGetLastError();
+      fulgor::make_lanes(outU), static_cast<uint32_t*>(umask),
+      static_cast<uint32_t*>(heavy));
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  staged_probe_rank_kernel<<<1, kRankThreads, 0, s>>>(
-      static_cast<const uint8_t*>(heavy), B, BH, static_cast<int32_t*>(hrank),
-      static_cast<int32_t*>(posH), static_cast<int32_t*>(totH));
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long long n = static_cast<long long>(BH) * Wk;
-  staged_probe_gather_kernel<<<static_cast<unsigned>((n + kThreads - 1) /
-                                                     kThreads),
-                               kThreads, 0, s>>>(
-      lin, static_cast<const int32_t*>(tag),
-      static_cast<const int32_t*>(posH), static_cast<const int32_t*>(totH),
-      Wk, BH, fulgor::make_lanes(outH));
+  staged_probe_gather_kernel<<<(BH + kWarps - 1) / kWarps, kThreads, 0,
+                               s>>>(
+      lin, static_cast<const uint32_t*>(umask),
+      static_cast<const uint32_t*>(heavy), B, Wk, BH, fulgor::make_lanes(outH),
+      static_cast<int32_t*>(hpre));
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int fulgor_staged_merge(const void* hitA, const void* valA,
-                                   const void* tag, const void* hrank,
-                                   const void* hitU, const void* valU,
-                                   const void* ovfU, const void* hitH,
-                                   const void* valH, const void* ovfH, int B,
-                                   int Wk, int RU, int BH, void* hit,
-                                   void* csid, void* ovf, void* stream) {
-  if (B <= 0 || Wk <= 0 || RU <= 0 || BH <= 0)
+                                   const void* umask, const void* heavy,
+                                   const void* hpre, const void* hitU,
+                                   const void* valU, const void* ovfU,
+                                   const void* hitH, const void* valH,
+                                   const void* ovfH, int B, int Wk, int RU,
+                                   int BH, void* hit, void* csid, void* ovf,
+                                   void* stream) {
+  if (bad_shape(B, Wk) || RU <= 0 || BH <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long n = static_cast<long long>(B) * Wk;
-  staged_probe_merge_kernel<<<static_cast<unsigned>((n + kThreads - 1) /
-                                                    kThreads),
-                              kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  staged_probe_merge_kernel<<<(B + kWarps - 1) / kWarps, kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(hitA), static_cast<const uint32_t*>(valA),
-      static_cast<const int32_t*>(tag), static_cast<const int32_t*>(hrank),
-      static_cast<const uint8_t*>(hitU), static_cast<const uint32_t*>(valU),
-      static_cast<const uint8_t*>(ovfU), static_cast<const uint8_t*>(hitH),
-      static_cast<const uint32_t*>(valH), static_cast<const uint8_t*>(ovfH), B,
-      Wk, RU, BH, static_cast<uint8_t*>(hit), static_cast<uint32_t*>(csid),
+      static_cast<const uint32_t*>(umask), static_cast<const uint32_t*>(heavy),
+      static_cast<const int32_t*>(hpre), static_cast<const uint8_t*>(hitU),
+      static_cast<const uint32_t*>(valU), static_cast<const uint8_t*>(ovfU),
+      static_cast<const uint8_t*>(hitH), static_cast<const uint32_t*>(valH),
+      static_cast<const uint8_t*>(ovfH), B, Wk, RU, BH,
+      static_cast<uint8_t*>(hit), static_cast<uint32_t*>(csid),
       static_cast<uint8_t*>(ovf));
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,8 +22,9 @@ past RU. A hit is text-verified, so hit and ovf never meet, and the csid of
 a hit equals the one-pass probe's. RA and RU default to anchor_budget and
 reprobe_budget of (Wk, k, m). -> (hit bool, csid int32 bit pattern, ovf
 bool), each (B, Wk). `minidict2_anchored_probe` launches csrc/anchored.cu's
-kernels around two K2 launches for CUDA tensors, and runs the plain version
-for CPU tensors. No size is read back to the host.
+three kernels around two K2 launches for CUDA tensors (reads of at most
+MAX_WK = 1,024 windows: the engine's widths stop there), and runs the plain
+version for CPU tensors. No size is read back to the host.
 """
 
 from __future__ import annotations
@@ -34,8 +35,8 @@ from . import kernels
 from .intersect import _first_positions
 from .minidict2 import anchor_budget, reprobe_budget
 from .probe import (
-    _extract33, _masks, check_probe_inputs, empty_lanes, minidict2_probe,
-    minidict2_probe_plain, prep_of_lanes, probe_lanes,
+    MAX_WK, _extract33, _masks, check_probe_inputs, empty_lanes,
+    minidict2_probe, minidict2_probe_plain, prep_of_lanes, probe_lanes,
 )
 from .u32 import u32
 
@@ -156,19 +157,31 @@ def minidict2_anchored_probe(slots, text32, skew, prep, *, k: int, m: int,
            for t in (pL, pR)):
         raise ValueError("anchored_probe: pL and pR must be contiguous "
                          "int32 of the prep's shape")
+    if prep[0].shape[1] > MAX_WK:
+        raise ValueError(f"anchored_probe: at most {MAX_WK} windows a read")
+    return _anchored_kernels(slots, text32, skew, prep, k=k, m=m,
+                             num_slots=num_slots, RA=RA, RU=RU)
+
+
+def _anchored_kernels(slots, text32, skew, prep, *, k, m, num_slots,
+                      RA=None, RU=None):
+    """csrc/anchored.cu's three kernels around K2's two launches, on the
+    checked inputs of minidict2_anchored_probe."""
     B, Wk = prep[0].shape
     RA, RU = _budgets(Wk, k, m, RA, RU)
     kw = dict(k=k, m=m, num_slots=num_slots)
     dev = slots.device
+    nw = (Wk + 31) // 32
     lanes = probe_lanes(prep)
     lanesA = empty_lanes(lanes, (B, 2 * RA))
-    posS = torch.empty((B, RA), dtype=torch.int32, device=dev)
-    posE = torch.empty((B, RA), dtype=torch.int32, device=dev)
+    smask = torch.empty((B, nw), dtype=torch.int32, device=dev)
+    emask = torch.empty((B, nw), dtype=torch.int32, device=dev)
     lib = kernels.library()
     stream = kernels.stream_of(slots)
     rc = lib.fulgor_anchored_anchors(
-        kernels.pointers(lanes), pL.data_ptr(), pR.data_ptr(), B, Wk, RA,
-        kernels.pointers(lanesA), posS.data_ptr(), posE.data_ptr(), stream)
+        kernels.pointers(lanes), prep[3].data_ptr(), prep[4].data_ptr(), B,
+        Wk, RA, kernels.pointers(lanesA), smask.data_ptr(), emask.data_ptr(),
+        stream)
     kernels.check(rc, "anchored_probe")
     kernels.launches["anchored_probe"] += 1
     anchors = minidict2_probe(slots, text32, skew, prep_of_lanes(lanesA),
@@ -177,19 +190,19 @@ def minidict2_anchored_probe(slots, text32, skew, prep, *, k: int, m: int,
     hit = torch.empty((B, Wk), dtype=torch.bool, device=dev)
     csid = torch.empty((B, Wk), dtype=torch.int32, device=dev)
     ovf = torch.empty((B, Wk), dtype=torch.bool, device=dev)
-    urank = torch.empty((B, Wk), dtype=torch.int32, device=dev)
+    umask = torch.empty((B, nw), dtype=torch.int32, device=dev)
     rc = lib.fulgor_anchored_extend(
         text32.data_ptr(), text32.shape[0], kernels.pointers(lanes),
-        pL.data_ptr(), pR.data_ptr(), posS.data_ptr(), posE.data_ptr(),
+        smask.data_ptr(), emask.data_ptr(),
         *(t.data_ptr() for t in anchors), B, Wk, RA, RU, k,
         kernels.pointers(lanesU), hit.data_ptr(), csid.data_ptr(),
-        ovf.data_ptr(), urank.data_ptr(), stream)
+        ovf.data_ptr(), umask.data_ptr(), stream)
     kernels.check(rc, "anchored_probe")
     kernels.launches["anchored_probe"] += 1
     hitU, valU, ovfU = minidict2_probe(slots, text32, skew,
                                        prep_of_lanes(lanesU), **kw)
     rc = lib.fulgor_anchored_merge(
-        urank.data_ptr(), hitU.data_ptr(), valU.data_ptr(), ovfU.data_ptr(),
+        umask.data_ptr(), hitU.data_ptr(), valU.data_ptr(), ovfU.data_ptr(),
         B, Wk, RU, hit.data_ptr(), csid.data_ptr(), ovf.data_ptr(), stream)
     kernels.check(rc, "anchored_probe")
     kernels.launches["anchored_probe"] += 1

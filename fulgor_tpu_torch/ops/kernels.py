@@ -12,7 +12,7 @@ the kernel launches made by the wrappers in ops/prep.py (K1 window_prep,
 K8 pack_codes), ops/probe.py (K2 minidict2_probe), ops/intersect.py (K3
 fi_and, K4 tu_mask, K5 km_scores, K6 compact_runs, K9 first_set_bits, K12
 runs_scores: runs_mask and runs_scores, K13 pack_hits), ops/lookup.py (K7
-cuckoo_lookup), ops/staged.py (K10 staged_probe: its four kernels, not the
+cuckoo_lookup), ops/staged.py (K10 staged_probe: its three kernels, not the
 K2 launches between them), ops/anchored.py (K11 anchored_probe: its
 three kernels) and ops/minidict.py (K14 minidict_v1_verify, not the K8
 and K1 launches before it): one per launch, nowhere else.
@@ -121,11 +121,11 @@ def bind(lib):
     lib.fulgor_cuckoo_lookup.argtypes = [P, I, P, P, I, I, I, P, P, P]
     lib.fulgor_pack_codes.argtypes = [P, I, I, P, P, P]
     lib.fulgor_first_set_bits.argtypes = [P, I, I, I, P, P, P]
-    lib.fulgor_staged_split.argtypes = [P] * 4 + [I] * 5 + [P] * 8
-    lib.fulgor_staged_merge.argtypes = [P] * 10 + [I] * 4 + [P] * 4
+    lib.fulgor_staged_split.argtypes = [P] * 4 + [I] * 5 + [P] * 6
+    lib.fulgor_staged_merge.argtypes = [P] * 11 + [I] * 4 + [P] * 4
     lib.fulgor_anchored_anchors.argtypes = [P] * 3 + [I] * 3 + [P] * 4
     lib.fulgor_anchored_extend.argtypes = (
-        [P, ct.c_int64, P] + [P] * 4 + [P] * 7 + [I] * 5 + [P] * 6)
+        [P, ct.c_int64, P] + [P] * 2 + [P] * 7 + [I] * 5 + [P] * 6)
     lib.fulgor_anchored_merge.argtypes = [P] * 4 + [I] * 3 + [P] * 4
     lib.fulgor_runs_scores.argtypes = [P, I, I, P, P, I, I, I, P, P, I, P,
                                        P]

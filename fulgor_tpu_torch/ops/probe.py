@@ -49,6 +49,9 @@ from .u32 import M32, i32, mix32, mulhi32, u32
 
 MAX_SKEW_CAND = 2 * SKEW_ROWW  # the kernel keeps at most this many pointers
 MAX_LANES = (1 << 31) - 256  # the kernel's lane index is 32-bit
+# K10 and K11 keep a read's window masks one 32-bit word a lane
+# (csrc/probe.cuh kMaxWk)
+MAX_WK = 1024
 
 
 def _masks(k: int):

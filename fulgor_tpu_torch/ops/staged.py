@@ -21,9 +21,10 @@ A hit is text-verified and a miss without ovf exhausted every candidate, so
 the staged probe equals the one-pass probe at (vb2, sc) wherever its ovf is
 false. -> (hit bool, csid int32 bit pattern, ovf bool), each (B, Wk).
 `minidict2_staged_probe` launches K2 three times and csrc/staged.cu's
-kernels between them for CUDA tensors, and runs the plain version for CPU
-tensors. No size is read back to the host: every shape follows from
-(B, Wk, RU).
+three kernels between them for CUDA tensors (reads of at most MAX_WK =
+1,024 windows: the engine's widths stop there), and runs the plain version
+for CPU tensors. No size is read back to the host: every shape follows
+from (B, Wk, RU).
 """
 
 from __future__ import annotations
@@ -33,8 +34,8 @@ import torch
 from . import kernels
 from .intersect import _first_positions
 from .probe import (
-    check_probe_inputs, empty_lanes, minidict2_probe, minidict2_probe_plain,
-    prep_of_lanes, probe_lanes,
+    MAX_WK, check_probe_inputs, empty_lanes, minidict2_probe,
+    minidict2_probe_plain, prep_of_lanes, probe_lanes,
 )
 
 
@@ -103,6 +104,17 @@ def minidict2_staged_probe(slots, text32, skew, prep, *, k: int, m: int,
             slots, text32, skew, prep, k=k, m=m, num_slots=num_slots,
             vb1=vb1, vb2=vb2, sc=sc, RU=RU)
     check_probe_inputs("staged_probe", slots, text32, skew, prep)
+    if prep[0].shape[1] > MAX_WK:
+        raise ValueError(f"staged_probe: at most {MAX_WK} windows a read")
+    return _staged_kernels(slots, text32, skew, prep, k=k, m=m,
+                           num_slots=num_slots, vb1=vb1, vb2=vb2, sc=sc,
+                           RU=RU)
+
+
+def _staged_kernels(slots, text32, skew, prep, *, k, m, num_slots, vb1, vb2,
+                    sc, RU):
+    """K2's three launches and csrc/staged.cu's three kernels between them,
+    on the checked inputs of minidict2_staged_probe."""
     B, Wk = prep[0].shape
     RU, BH = _budgets(B, Wk, vb1, vb2, sc, RU)
     kw = dict(k=k, m=m, num_slots=num_slots)
@@ -112,20 +124,18 @@ def minidict2_staged_probe(slots, text32, skew, prep, *, k: int, m: int,
                                             vb=vb1, stage1=True, **kw)
     lanesU = empty_lanes(lanes, (B, RU))
     lanesH = empty_lanes(lanes, (BH, Wk))
-    tag = torch.empty((B, Wk), dtype=torch.int32, device=dev)
-    heavy = torch.empty(B, dtype=torch.bool, device=dev)
-    hrank = torch.empty(B, dtype=torch.int32, device=dev)
-    posH = torch.empty(BH, dtype=torch.int32, device=dev)
-    totH = torch.empty(1, dtype=torch.int32, device=dev)
+    umask = torch.empty((B, (Wk + 31) // 32), dtype=torch.int32, device=dev)
+    heavy = torch.empty((B + 31) // 32, dtype=torch.int32, device=dev)
+    hpre = torch.empty((B + 31) // 32, dtype=torch.int32, device=dev)
     lib = kernels.library()
+    stream = kernels.stream_of(slots)
     rc = lib.fulgor_staged_split(
         kernels.pointers(lanes), hitA.data_ptr(), cnt.data_ptr(),
         need.data_ptr(), B, Wk, vb1, RU, BH, kernels.pointers(lanesU),
-        kernels.pointers(lanesH), tag.data_ptr(), heavy.data_ptr(),
-        hrank.data_ptr(), posH.data_ptr(), totH.data_ptr(),
-        kernels.stream_of(slots))
+        kernels.pointers(lanesH), umask.data_ptr(), heavy.data_ptr(),
+        hpre.data_ptr(), stream)
     kernels.check(rc, "staged_probe")
-    kernels.launches["staged_probe"] += 3  # split, rank, gather
+    kernels.launches["staged_probe"] += 2  # split, gather
     hitU, valU, ovfU = minidict2_probe(slots, text32, skew,
                                        prep_of_lanes(lanesU), vb=vb2, sc=sc,
                                        **kw)
@@ -136,10 +146,10 @@ def minidict2_staged_probe(slots, text32, skew, prep, *, k: int, m: int,
     csid = torch.empty((B, Wk), dtype=torch.int32, device=dev)
     ovf = torch.empty((B, Wk), dtype=torch.bool, device=dev)
     rc = lib.fulgor_staged_merge(
-        hitA.data_ptr(), valA.data_ptr(), tag.data_ptr(), hrank.data_ptr(),
-        hitU.data_ptr(), valU.data_ptr(), ovfU.data_ptr(), hitH.data_ptr(),
-        valH.data_ptr(), ovfH.data_ptr(), B, Wk, RU, BH, hit.data_ptr(),
-        csid.data_ptr(), ovf.data_ptr(), kernels.stream_of(slots))
+        hitA.data_ptr(), valA.data_ptr(), umask.data_ptr(), heavy.data_ptr(),
+        hpre.data_ptr(), hitU.data_ptr(), valU.data_ptr(), ovfU.data_ptr(),
+        hitH.data_ptr(), valH.data_ptr(), ovfH.data_ptr(), B, Wk, RU, BH,
+        hit.data_ptr(), csid.data_ptr(), ovf.data_ptr(), stream)
     kernels.check(rc, "staged_probe")
     kernels.launches["staged_probe"] += 1
     return hit, csid, ovf
