@@ -23,8 +23,13 @@ last line, which is printed only when every phase passed:
               loaded back.
   4. kernels  one full batch of real reads (B=32768, W=160): each kernel
               against its plain PyTorch version, bit for bit (tolerance 0),
-              K4 at tau 0.8 and 1.0 (where it must also equal K3), K6 at run
-              budgets 2, 16, 32, Wk, 2 Wk and the engine's two, K7 also
+              K4 at tau 0.8 and 1.0 (where it must also equal K3), K6 (with
+              and without its hit words, which must equal K13's plain
+              version's) at run budgets 2, 16, 32, Wk, 2 Wk and the
+              engine's three, and K6 and K13 on seeded edge batches (Wk 1,
+              31, 32, 33, 130, 257 and 1,024, B 1, 8,191 and 32,768, rows
+              all negative, all positive, of one csid and of alternating
+              csids, run budgets 1 to 2 Wk), K7 also
               against K2 at the redo budget on every window K2 decides and
               on seeded edge batches (k 15 and 31, W 32, 160 and 1,024, 777
               reads, 16 of them all N; k = 15 on a table of the first 4 Mbp
@@ -38,7 +43,11 @@ last line, which is printed only when every phase passed:
               query_runs_tu_packed against its plain composition. K7 is
               also timed against a table of the first 2 Mbp of the text's
               k-mers, which L2 holds, on reads cut from that text; with
-              --parent it is timed in turns with DIR's K7.
+              --parent it is timed in turns with DIR's K7. K6 is timed at
+              the kmer-conservation, --deduplicate and runs fetch budgets
+              and at one (2, 2) grid cell's shape, with and without hit
+              words; with --parent in turns with DIR's K6 (the hit-word
+              instance against DIR's K6 then K13).
   5. e2e      on the card over every read, each path with the launch counts
               reset just before each timed run and checked just after:
               FI pseudoalign_file (a warm-up, three timed runs to /dev/null,
@@ -77,12 +86,12 @@ last line, which is printed only when every phase passed:
               plain version bit for bit on one batch's K3 rows at C32 =
               143 and on seeded edge rows, at T in {1, 3, 64}, timed.
               (a) The default strategy, runs fetch: FI (no K3) and TU(0.8)
-              (K4), each a warm-up, three timed runs (FI's key cache
+              (K4), each a warm-up, two timed runs (FI's key cache
               emptied before each), a profiled run and a run to a file;
               every record equal to the expansion (g -> g, g + 512, ...) of
               the read's record in phase 5's files, on every read, and to
               the host mirror on phase 7's reads. FI by the dense path
-              (use_runs_fetch off: K3, its rows fetched), three timed runs
+              (use_runs_fetch off: K3, its rows fetched), two timed runs
               and a run to a file equal to the runs fetch's, which decides
               whether the runs fetch earns its place where the dense matrix
               is allowed.
@@ -149,7 +158,8 @@ last line, which is printed only when every phase passed:
               shard of the 512-colour dense at P in {1, 2, 4} and of the
               4,546-colour one at P = 2; K13 pack_hits on K2's hits and
               csids, with and without narrowing; query_conservation_packed
-              against its plain composition; K12 also on seeded edge
+              against its plain composition, launching K1, K2 and K13 once
+              each (K13's launches in the last line); K12 also on seeded edge
               batches (C32 x R of 1 x 1, 1 x 1,024, 8 x 33, 8 x 130, 72 x
               130 and 143 x 1,024, a ragged C; reads of no valid run, of
               1-4 and more, scattered among INVALID slots, a csid that
@@ -159,7 +169,9 @@ last line, which is printed only when every phase passed:
               reads its truth table takes logged. K12 timed at a (2, 2)
               grid's shape (one data row's reads, shard 0 of 2) in mask and
               u16 mode, with --parent in turns with DIR's K12 and also on
-              the 4,546-colour index's shard 0 of 2; K13 at one cell's.
+              the 4,546-colour index's shard 0 of 2; K13 at one cell's
+              shape, with and without narrowing, with --parent in turns
+              with DIR's K13.
               (b) QueryEngine on a (2, 2) grid of four cells on this card
               and with use_mesh=True (a (1, 1) grid): FI, TU(0.8),
               --deduplicate, kmer-matches and kmer-conservation once each
@@ -167,11 +179,14 @@ last line, which is printed only when every phase passed:
               read id, kmer-matches and -conservation byte for byte; each
               batch four launches (one on (1, 1)) of K1, K2 and K6 and of
               K3 or K12, the TU and kmer-matches redo batches as many
-              (their redo runs the mesh's step, never K4 or K5); FI and
-              TU(0.8) on (2, 2) also a warm-up, three timed passes in
+              (their redo runs the mesh's step, never K4 or K5), and no
+              K13 (kmer-matches takes its hit words from K6); FI and
+              TU(0.8) on (2, 2) also a warm-up, two timed passes in
               turns with one-device passes of the same tool, and a
               profiled pass; with --parent TU(0.8) and kmer-matches on
-              (2, 2) four passes each in turns with DIR's kernels; the
+              (2, 2) four passes each in turns with DIR's kernels (DIR's
+              own kmer-matches step, which launched K13); a profiled
+              kmer-matches pass on (2, 2), with --parent DIR's too; the
               array API's FI and TU(0.8) on the (2, 2)
               grid, read for read equal to phase 8's.
               (c) the 4,546-colour index on the (2, 2) grid: runs fetch
@@ -368,26 +383,32 @@ for _probe, _other in (("staged", "anchored_probe"),
         MINI + (f"{_probe}_probe", "tu_mask"),
         CUCKOO + (_other, "fi_and", "km_scores", "compact_runs",
                   "pack_codes") + K9)
-# phase 11: the mesh's kernels, which no earlier path launches, and its
+# phase 11: the mesh's kernel, which no earlier path launches, and its
 # paths; MESH_EXACT: the kernels a path launches once a cell a batch (the
-# probe's K1/K2 at least that: the redo pools add theirs)
-MESHK = ("runs_scores", "pack_hits")
+# probe's K1/K2 at least that: the redo pools add theirs). K13 runs on no
+# engine path: the mesh's kmer-matches takes its hit words from K6's
+# launch (query_conservation_packed, which no engine path calls, still
+# launches K13); the parent's mesh kmer-matches step (--parent) launched it
+MESHK, K13 = ("runs_scores",), ("pack_hits",)
 for _p, (_need, _forbid) in list(PATH_KERNELS.items()):
-    PATH_KERNELS[_p] = (_need, _forbid + MESHK)
+    PATH_KERNELS[_p] = (_need, _forbid + MESHK + K13)
 _NOT_MESH = CUCKOO + ("pack_codes",) + K9 + PROBES
 PATH_KERNELS.update({
     "mesh_fi": (MINI + ("compact_runs", "fi_and"),
-                _NOT_MESH + ("tu_mask", "km_scores") + MESHK),
+                _NOT_MESH + ("tu_mask", "km_scores") + MESHK + K13),
     # TU's and kmer-matches' redo pools run the mesh's own steps too
-    "mesh_tu": (MINI + ("compact_runs", "runs_scores"),
-                _NOT_MESH + ("fi_and", "tu_mask", "km_scores", "pack_hits")),
+    "mesh_tu": (MINI + ("compact_runs",) + MESHK,
+                _NOT_MESH + ("fi_and", "tu_mask", "km_scores") + K13),
     "mesh_km": (MINI + ("compact_runs",) + MESHK,
-                _NOT_MESH + ("fi_and", "tu_mask", "km_scores")),
+                _NOT_MESH + ("fi_and", "tu_mask", "km_scores") + K13),
+    "mesh_km_parent": (MINI + ("compact_runs",) + MESHK + K13,
+                       _NOT_MESH + ("fi_and", "tu_mask", "km_scores")),
     "mesh_kc": (MINI + ("compact_runs",),
-                _NOT_MESH + ("fi_and", "tu_mask", "km_scores") + MESHK),
+                _NOT_MESH + ("fi_and", "tu_mask", "km_scores") + MESHK
+                + K13),
     "mesh_cuckoo_fi": (CUCKOO + ("compact_runs", "fi_and"),
                        MINI + ("pack_codes", "tu_mask", "km_scores") + K9
-                       + PROBES + MESHK),
+                       + PROBES + MESHK + K13),
 })
 PATH_KERNELS["mesh_dedup"] = PATH_KERNELS["mesh_wide_fi"] = (
     PATH_KERNELS["mesh_kc"])
@@ -407,6 +428,7 @@ MESH_EXACT = {
     "mesh_fi": ("compact_runs", "fi_and"),
     "mesh_tu": ("compact_runs", "runs_scores"),
     "mesh_km": ("compact_runs",) + MESHK,
+    "mesh_km_parent": ("compact_runs",) + MESHK + K13,
     "mesh_kc": (),  # its inline redo runs K6 too
     "mesh_dedup": ("compact_runs",),
     "mesh_wide_fi": ("compact_runs",),
@@ -418,16 +440,20 @@ MESH_EXACT = {
 }
 # the paths whose redo pools run the mesh's colour step: each redo batch
 # adds one launch a cell of their MESH_EXACT kernels
-MESH_REDO = ("mesh_tu", "mesh_km", "mesh_wide_tu")
+MESH_REDO = ("mesh_tu", "mesh_km", "mesh_km_parent", "mesh_wide_tu")
 # K12's colour shards at 512 colours; the grid of four cells on one card
 MESH_P, GRID = (1, 2, 4), (2, 2)
-MESH_PASSES = 3
+# (FI's and TU's timed passes on the grid cut from three to two to make
+# room for K6's and K13's timing in turns and the profiled kmer-matches
+# passes)
+MESH_PASSES = 2
 CUCKOO_PASSES = 3
 # the run budget forced on kc and dedup for their overflow runs
 FORCED_RUNS = 2
 # phase 9: timed runs of each default path, and the list length forced on
 # the lists fetch so that most reads take the row fetch
-WIDE_PASSES, FORCED_T = 3, 3
+# (WIDE_PASSES cut from three to two with MESH_PASSES)
+WIDE_PASSES, FORCED_T = 2, 3
 # phase 10: K10's budgets (vb1, vb2, sc, RU), the second forcing tier B2
 # and its overflow past BH heavy reads, the first the end-to-end one; K11's
 # (RA, RU), None for anchor_budget/reprobe_budget; timed passes a path
@@ -466,6 +492,11 @@ PROBE_EDGE_BASES = 4_000_000
 # timed against a table of the first K7_L2_BASES bases' k-mers, which L2
 # holds
 K12_EDGE = ((1, 1), (1, 1024), (8, 33), (8, 130), (72, 130), (143, 1024))
+# K6's and K13's seeded edge batches (B, Wk): Wk around a 32-window chunk
+# and K6's group of eight chunks at 8,191 reads (an odd count of blocks of
+# eight reads), one read, and phase 4's batch size
+RUNS_EDGE = ((8191, 1), (8191, 31), (8191, 32), (8191, 33), (8191, 130),
+             (8191, 257), (8191, 1024), (1, 130), (1, 1024), (32768, 130))
 K12_EDGE_NPOS = 70_000
 K7_EDGE = ((31, 32), (31, 160), (31, 1024), (15, 32), (15, 160), (15, 1024))
 K7_EDGE_BASES = 4_000_000
@@ -688,22 +719,32 @@ def phase_build():
 
 def parent_library(parent):
     """The kernel library of another checkout of this repository (--parent:
-    an earlier commit unpacked with git archive), built from its csrc/
-    into its own _build/ and bound as this one: its K2-K5, K7 and K12 are
-    timed in turns with this tree's (in_turns), and its kernels drive TU,
-    kmer-matches, the mesh's TU and kmer-matches, cuckoo FI and staged FI
-    passes in turns with this tree's (passes_in_turns). The C entry points
-    of both trees must take the same arguments, but for K10's and K11's,
-    which the parent's own wrappers launch (parent_probes)."""
+    an earlier commit unpacked with git archive), built from the sources of
+    its csrc/ into its own _build/ and bound as this one, its C entries
+    only: its K2-K7, K12 and K13 are timed in turns with this tree's
+    (in_turns), and its kernels drive TU, kmer-matches, the mesh's TU and
+    kmer-matches, cuckoo FI and staged FI passes in turns with this tree's
+    (passes_in_turns). The C entry points that both trees define must take
+    the same arguments, but for K10's and K11's, which the parent's own
+    wrappers launch (parent_probes); the parent's mesh kmer-matches step
+    is its own too (parent_mesh_km)."""
     pkg = os.path.join(os.path.abspath(parent), "fulgor_tpu_torch")
+    csrc = os.path.join(pkg, "csrc")
     lib = os.path.join(pkg, "_build", "libfulgor_kernels.so")
+    sources = sorted(f for f in os.listdir(csrc) if f.endswith(".cu"))
     t0 = time.perf_counter()
-    text = kernels.build(os.path.join(pkg, "csrc"), lib)
+    text = kernels.build(csrc, lib, sources)
     log(f"[build] the parent's kernels ({parent}) built in "
-        f"{time.perf_counter() - t0:.2f} s; its K2-K5, K7, K10-K12:")
+        f"{time.perf_counter() - t0:.2f} s; its K2-K7, K10-K13:")
     log_resources("build", text, ("probe.cu", "intersect.cu", "union.cu",
-                                  "cuckoo.cu", "staged.cu", "anchored.cu"))
-    return kernels.bind(ct.CDLL(lib))
+                                  "runs.cu", "hits.cu", "cuckoo.cu",
+                                  "staged.cu", "anchored.cu"))
+    defined = set()
+    for f in sources:
+        with open(os.path.join(csrc, f)) as fh:
+            defined.update(re.findall(r'extern "C" int (\w+)\(', fh.read()))
+    return kernels.bind(ct.CDLL(lib),
+                        [n for n in kernels.ENTRIES if n in defined])
 
 
 # the parent's K10 and K11 wrappers (parent_probes), which the engine's
@@ -733,6 +774,38 @@ def parent_probes(parent):
             .minidict2_staged_probe,
             importlib.import_module(f"{name}.ops.anchored")
             .minidict2_anchored_probe)
+
+
+def parent_mesh_km():
+    """The parent's make_sharded_kmer_matches, from the package that
+    parent_probes imported (its step launched K13 on each cell's hits after
+    K6, and its wrappers launch the parent's kernels), its outputs given as
+    this tree's Blocks."""
+    import importlib
+
+    pm = importlib.import_module("parent_fulgor_tpu_torch.parallel.mesh")
+
+    def make(*args, **kw):
+        step = pm.make_sharded_kmer_matches(*args, **kw)
+        return lambda *x: tuple(engine_mod.M.Blocks(o.blocks)
+                                for o in step(*x))
+    return make
+
+
+PARENT_MESH_KM = None
+
+
+def parent_mesh_km_pass(meng, fn):
+    """fn() with the meshed engine meng's kmer-matches steps built by the
+    parent's mesh (PARENT_MESH_KM), its own steps restored after."""
+    keep, own = dict(meng._mesh_fns), engine_mod.M.make_sharded_kmer_matches
+    meng._mesh_fns = {k: v for k, v in keep.items() if k[0] != "km"}
+    engine_mod.M.make_sharded_kmer_matches = PARENT_MESH_KM
+    try:
+        return fn()
+    finally:
+        engine_mod.M.make_sharded_kmer_matches = own
+        meng._mesh_fns = keep
 
 
 @contextlib.contextmanager
@@ -835,18 +908,23 @@ def in_turns(tag, name, what, nbytes, fn, flush, parent):
     return new, (n1[1] + n2[1]) / 2
 
 
-def passes_in_turns(tag, path, fn, parent):
+def passes_in_turns(tag, path, fn, parent, parent_fn=None,
+                    parent_path=None):
     """With `parent`, one timed pass of fn (timed_passes, its launches
     checked against PATH_KERNELS[path]) on the parent's kernels and on
     this tree's in turns: parent, this, this, parent; logs the two
-    medians and their ratio. No reads/s is claimed from them: the card
-    idles through most of a pass."""
+    medians and their ratio. The parent's turn runs parent_fn where given,
+    its launches checked against parent_path's. No reads/s is claimed from
+    them: the card idles through most of a pass."""
     if parent is None:
         return
     rates = {"this": [], "parent": []}
     for who in ("parent", "this", "this", "parent"):
-        with (using_library(parent) if who == "parent"
-              else contextlib.nullcontext()):
+        if who == "parent":
+            with using_library(parent):
+                rates[who] += timed_passes(parent_path or path,
+                                           parent_fn or fn, 1)[0]
+        else:
             rates[who] += timed_passes(path, fn, 1)[0]
     new = statistics.median(rates["this"])
     old = statistics.median(rates["parent"])
@@ -1018,7 +1096,7 @@ def phase_kernels(idx, eng, ceng, codes, parent):
     rows[-2]["max_abs_err"] = max(rows[-2]["max_abs_err"], errs_wide[0])
     rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"], errs_wide[1])
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    rows.append(phase_runs(eng, hit, csid, flush))
+    rows.append(phase_runs(eng, hit, csid, flush, parent))
     rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"],
                                   phase_runs_tu(eng, c2, bd))
     rows += phase_cuckoo_pack(eng, ceng, chunk, c2, bd, prep, flush,
@@ -1223,40 +1301,148 @@ def phase_cuckoo_pack(eng, ceng, chunk, c2, bd, prep, flush, parent):
     return [row7, row8]
 
 
-def runs_bytes(R) -> int:
+def runs_bytes(B, Wk, R, words=False) -> int:
     """K6's bytes at run budget R: hit and csid read once (5 B a window),
-    an int32 csid and two u16 a run slot and two int32 a read written."""
-    return BATCH * (WIDTH - K + 1) * 5 + BATCH * R * 8 + BATCH * 8
+    an int32 csid and two u16 a run slot and two int32 a read written, and
+    with hit words 4 B a 32 windows."""
+    return (B * Wk * 5 + B * R * 8 + B * 8
+            + (B * ((Wk + 31) // 32) * 4 if words else 0))
 
 
-def phase_runs(eng, hit, csid, flush):
+def edge_runs_inputs(rng, B, Wk, dev):
+    """A seeded (hit, csid) batch for K6's and K13's edge checks: rows of
+    runs of mean length 1, 3 or 20 over 3 or 70,000 csids (a csid recurs
+    after another run and after a miss) at 30%-100% positive windows; row
+    b % 8 = 0 all negative, 1 all positive with one csid near INVALID over
+    the whole read, 2 all positive with alternating csids, 3 all positive
+    with a new csid each window (Wk runs), 4 positive every other window."""
+    mean = rng.choice([1.0, 3.0, 20.0], size=(B, 1))
+    alpha = rng.choice([3, 70_000], size=(B, 1))
+    change = rng.random((B, Wk)) < 1.0 / mean
+    csid = np.cumsum(change, axis=1) * 2_654_435_761 % alpha
+    hit = rng.random((B, Wk)) < rng.choice([0.3, 0.8, 0.97, 1.0],
+                                            size=(B, 1))
+    w = np.arange(Wk)
+    kind = np.arange(B) % 8
+    hit[kind == 0] = False
+    hit[(kind >= 1) & (kind <= 3)] = True
+    hit[kind == 4] = w % 2 == 0
+    csid[kind == 1] = 0xFFFFFFF0
+    csid[kind == 2] = w % 2
+    csid[kind == 3] = w
+    csid = csid.astype(np.uint32).view(np.int32)
+    return (torch.from_numpy(hit).to(dev),
+            torch.from_numpy(np.ascontiguousarray(csid)).to(dev))
+
+
+def check_runs_edges(dev) -> int:
+    """K6 (both instances, hit words against pack_hits_plain's) and K13
+    (with and without narrowing) on RUNS_EDGE's seeded batches, bit for bit
+    against the plain versions; K6 at run budgets 1 to 2 Wk; an
+    all-negative and an all-positive one-csid batch too. -> max_abs_err."""
+    rng = np.random.default_rng(13)
+    t0 = time.perf_counter()
+    batches = [(B, Wk, edge_runs_inputs(rng, B, Wk, dev))
+               for B, Wk in RUNS_EDGE]
+    for fill in (False, True):
+        hit = torch.full((EDGE_READS, 33), fill, dtype=torch.bool, device=dev)
+        batches.append((EDGE_READS, 33, (hit, torch.full_like(
+            hit, 5, dtype=torch.int32))))
+    err, checks, over = 0, 0, 0
+    for B, Wk, (hit, csid) in batches:
+        for R in sorted({1, 2, 16, Wk // 2 + 1, Wk, 2 * Wk}):
+            want = compact_runs_plain(hit, csid, R, True)
+            for words in (False, True):
+                got = compact_runs(hit, csid, R, words)
+                torch.cuda.synchronize()
+                err = max(err, max_abs_err(got, want[:len(got)]))
+                checks += 1
+            over += int((want[3] > R).sum())
+        for narrow in (False, True):
+            got = pack_hits(hit, csid if narrow else None)
+            want = pack_hits_plain(hit, csid if narrow else None)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err(
+                tuple(x for x in got if x is not None),
+                tuple(x for x in want if x is not None)))
+            checks += 1
+    log(f"[kernels] compact_runs and pack_hits on {len(batches)} seeded edge "
+        f"batches (B x Wk {RUNS_EDGE}, an all-negative and an all-positive "
+        f"batch of {EDGE_READS} x 33; run budgets 1 to 2 Wk): {checks} "
+        f"checks, {over} read-budget pairs past R, max_abs_err {err} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return err
+
+
+def runs_in_turns(what, B, Wk, R, hit, csid, flush, parent):
+    """K6 at (B, Wk, R) in turns with the parent's (in_turns), then its
+    hit-word instance: with `parent` in turns with the parent's K6 and K13
+    launched one after the other, as the mesh's kmer-matches step did
+    (probe_in_turns: a call's kernels summed). -> (ms, warm ms) of K6's
+    plain instance."""
+    ms = in_turns("kernels", "compact_runs", f"{what} ({B} reads x Wk "
+                  f"{Wk}, R = {R})", (runs_bytes(B, Wk, R),),
+                  lambda: compact_runs(hit, csid, R), flush, parent)
+    bound = runs_bytes(B, Wk, R, True) / HBM_BYTES_PER_S * 1e3
+    if parent is None:
+        cold, warm = kernel_times(lambda: compact_runs(hit, csid, R, True),
+                                  "compact_runs", flush)
+        log(f"[kernels] compact_runs with hit words at {what}: {cold:.4f} ms "
+            f"cold L2, {warm:.4f} warm; bound {bound:.4f} ms, "
+            f"{bound / cold:.1%} of it cold")
+        return ms
+
+    def parent_fn():
+        with using_library(parent):
+            compact_runs(hit, csid, R)
+            pack_hits(hit)
+
+    cold, warm, _per = probe_in_turns(
+        "compact_runs", ("compact_runs", "pack_hits"),
+        lambda: compact_runs(hit, csid, R, True), parent_fn, flush)
+    log(f"[kernels] compact_runs with hit words at {what}: {cold:.4f} ms "
+        f"cold L2 ({warm:.4f} warm) against the parent's K6 then K13 in the "
+        f"turns above; bound {bound:.4f} ms, {bound / cold:.1%} of it cold")
+    return ms
+
+
+def phase_runs(eng, hit, csid, flush, parent):
     """K6 against compact_runs_plain on the batch's (hit, csid), bit for
-    bit on all five outputs, at run budgets 2 (most reads overflow), 16,
-    32, Wk, 2 Wk and the engine's kmer-conservation and --deduplicate
-    budgets; timed at the last two. -> the kernel's row."""
+    bit on all five outputs and its hit words, at run budgets 2 (most reads
+    overflow), 16, 32, Wk, 2 Wk, the engine's kmer-conservation and
+    --deduplicate budgets and the runs fetch's; on seeded edge batches
+    (check_runs_edges). Timed at the last three and at one (2, 2) grid
+    cell's shape (B / 4 reads at R = Wk, with and without hit words), with
+    `parent` in turns with the parent's kernels. -> the kernel's row."""
     Wk = WIDTH - K + 1
     r_kc = engine_mod._runs_budget(WIDTH, eng._ekpu, K)
     r_dd = 2 * r_kc
+    r_rf = eng.runs_fi_budget
     log(f"[kernels] index ekpu {eng._ekpu:.2f}: run budget at W={WIDTH} "
-        f"{r_kc} (kmer-conservation), {r_dd} (--deduplicate)")
+        f"{r_kc} (kmer-conservation), {r_dd} (--deduplicate), {r_rf} (runs "
+        "fetch)")
     err = 0
-    for R in sorted({2, 16, 32, Wk, 2 * Wk, r_kc, r_dd}):
-        got = compact_runs(hit, csid, R)
-        want = compact_runs_plain(hit, csid, R)
-        torch.cuda.synchronize()
-        e = max_abs_err(got, want)
+    for R in sorted({2, 16, 32, Wk, 2 * Wk, r_kc, r_dd, r_rf}):
+        want = compact_runs_plain(hit, csid, R, True)
+        e = 0
+        for words in (False, True):
+            got = compact_runs(hit, csid, R, words)
+            torch.cuda.synchronize()
+            e = max(e, max_abs_err(got, want[:len(got)]))
         err = max(err, e)
         log(f"[kernels] compact_runs at R={R}: {int((got[3] > R).sum())} of "
             f"{hit.shape[0]} reads past R, up to {int(got[3].max())} runs "
-            f"a read, {int(got[3].sum())} runs, max_abs_err {e}")
-    ms, warm = kernel_times(lambda: compact_runs(hit, csid, r_kc),
-                            "compact_runs", flush)
-    ms_dd, warm_dd = kernel_times(lambda: compact_runs(hit, csid, r_dd),
-                                  "compact_runs", flush)
-    log(f"[kernels] compact_runs at the --deduplicate budget R={r_dd}: "
-        f"{ms_dd:.4f} ms cold L2, {warm_dd:.4f} ms warm, bound "
-        f"{runs_bytes(r_dd) / HBM_BYTES_PER_S * 1e3:.4f} ms by bytes "
-        f"({runs_bytes(r_dd) / 1e6:.1f} MB)")
+            f"a read, {int(got[3].sum())} runs, max_abs_err {e} (with hit "
+            "words)")
+    err = max(err, check_runs_edges(hit.device))
+    ms, warm = runs_in_turns("phase 4's batch, kmer-conservation", BATCH, Wk,
+                             r_kc, hit, csid, flush, parent)
+    for what, R in (("--deduplicate", r_dd), ("runs fetch", r_rf)):
+        runs_in_turns(f"phase 4's batch, {what}", BATCH, Wk, R, hit, csid,
+                      flush, parent)
+    b = BATCH // (GRID[0] * GRID[1])
+    hc, cc = hit[:b].contiguous(), csid[:b].contiguous()
+    runs_in_turns(f"one {GRID} grid cell", b, Wk, Wk, hc, cc, flush, parent)
     return dict(
         name="compact_runs", source="fulgor_tpu_torch/csrc/runs.cu",
         replaces="fulgor_tpu/ops/intersect.py:188", max_abs_err=err,
@@ -1264,7 +1450,7 @@ def phase_runs(eng, hit, csid, flush):
         plain_ms=time_ms(lambda: compact_runs_plain(hit, csid, r_kc),
                          REPS_PLAIN),
         # shuffles, compares, ballots and popcounts: ~16 a window
-        bytes=runs_bytes(r_kc), ops=BATCH * Wk * 16)
+        bytes=runs_bytes(BATCH, Wk, r_kc), ops=BATCH * Wk * 16)
 
 
 def phase_runs_tu(eng, c2, bd) -> int:
@@ -2468,10 +2654,12 @@ def probe_in_turns(name, names, fn, parent_fn, flush):
         return statistics.mean(sum(v for k, v in t[3].items()
                                    if k.startswith(name))
                                for t in turns[who])
+    # a call timed on the stream (call_ms) splits into no kernels: 0
+    ratio = own("parent") / own("this") if own("this") else float("nan")
     log(f"[probes] {name} in turns (parent, this, this, parent): this tree "
         f"{new:.4f} ms a call cold L2, the parent's {old:.4f}: "
         f"{old / new:.2f}x; own kernels {own('this'):.4f} against "
-        f"{own('parent'):.4f} ({own('parent') / own('this'):.2f}x)")
+        f"{own('parent'):.4f} ({ratio:.2f}x)")
     per = {}
     for t in turns["this"]:
         for k, v in t[3].items():
@@ -2948,12 +3136,13 @@ def phase_mesh_kernels(eng, wide, codes, parent):
     on K12_EDGE's seeded edge batches (check_k12_edges); the reads its
     truth table takes logged. K13 with and without narrowing, on the batch
     and on one cell's reads; query_conservation_packed (K1 -> K2 -> K13)
-    against its plain composition, small_csid on and off. K12 timed at the
-    (2, 2) grid's shape (a data row's B / 2 reads, shard 0 of 2) in mask
+    against its plain composition, small_csid on and off, its launches
+    counted (K13's row's path_launches). K12 timed at the (2, 2) grid's
+    shape (a data row's B / 2 reads, shard 0 of 2) in mask
     and u16 mode, with `parent` in turns with the parent's K12 and also on
     the wide index's shard 0 of 2; K13 at one cell's shape (B / 4 reads,
-    no narrowing, as the mesh's kmer-matches). -> (K12's row, K13's
-    row)."""
+    with and without narrowing), with `parent` in turns. -> (K12's row,
+    K13's row)."""
     dev = eng.device
     chunk = np.full((BATCH, WIDTH), 4, dtype=np.uint8)
     n = min(BATCH, len(codes))
@@ -3056,15 +3245,21 @@ def phase_mesh_kernels(eng, wide, codes, parent):
             log(f"[mesh] pack_hits on {rows} reads, narrowing {narrow}: "
                 f"max_abs_err {e}")
     hb = hit[:b].contiguous()
-    ms13, warm13 = kernel_times(lambda: pack_hits(hb), "pack_hits", flush)
-    del flush
     nw = (Wk + 31) // 32
+    bytes13 = b * Wk + b * nw * 4
+    ms13, warm13 = in_turns("mesh", "pack_hits", f"one {GRID} grid cell's "
+                            f"shape ({b} reads x Wk {Wk}, no narrowing)",
+                            (bytes13,), lambda: pack_hits(hb), flush, parent)
+    in_turns("mesh", "pack_hits", f"the same, narrowing ({b} x Wk {Wk})",
+             (bytes13 + b * Wk * 6,),
+             lambda: pack_hits(hb, csid[:b].contiguous()), flush, parent)
+    del flush
     row13 = dict(
-        name="pack_hits", source="fulgor_tpu_torch/csrc/hits.cu",
+        name="pack_hits", source="fulgor_tpu_torch/csrc/runs.cu",
         replaces="fulgor_tpu/ops/pipeline.py:338", max_abs_err=err13,
         ms=ms13, warm_ms=warm13,
         plain_ms=time_ms(lambda: pack_hits_plain(hb), REPS_PLAIN),
-        bytes=b * Wk + b * nw * 4, ops=b * Wk * 2)
+        bytes=bytes13, ops=b * Wk * 2)
 
     # query_conservation_packed against its plain composition
     slots, text32, skew = eng.table
@@ -3074,20 +3269,56 @@ def phase_mesh_kernels(eng, wide, codes, parent):
         slots, text32, skew, prep, k=K, m=m, num_slots=num_slots,
         vb=eng._pb[0], sc=eng._pb[1])
     for small in (False, True):
+        kernels.reset_launches()
         got = query_conservation_packed(
             eng.table, c2, bd, k=K, width=WIDTH, small_csid=small,
             dparams=eng.dparams, probe_budget=eng._pb)
+        launches = dict(kernels.launches)
         hw, c16 = pack_hits_plain(ph, pc if small else None)
         want = (hw, c16 if small else pc, po.any(dim=1))
         torch.cuda.synchronize()
         e = max_abs_err(got, want)
         err13 = max(err13, e)
         log(f"[mesh] query_conservation_packed, small_csid {small}, against "
-            f"its plain composition: max_abs_err {e}")
+            f"its plain composition: max_abs_err {e}; launches {launches}")
+        if launches["pack_hits"] != 1 or any(launches[n] < 1 for n in MINI):
+            raise RuntimeError("query_conservation_packed did not launch K1, "
+                               f"K2 and K13 once: {launches}")
+    # K13's launches: the step that still launches it, small_csid on
     row13["max_abs_err"] = err13
+    row13["path_launches"] = launches
     for r in (row12, row13):
         finish_row(r, "mesh")
     return row12, row13
+
+
+def profiled_km(path, fn):
+    """A mesh kmer-matches pass under the profiler: the card's busy time,
+    each kernel's launches and device time; its launches checked against
+    PATH_KERNELS[path], and the profiler's record too where it holds every
+    launch of K6."""
+    kernels.reset_launches()
+    wall, busy, per_kernel, _st = device_busy(fn)
+    launches = dict(kernels.launches)
+    need, forbid = PATH_KERNELS[path]
+    missing = [k for k in need if launches[k] <= 0]
+    extra = [k for k in forbid if launches[k] > 0]
+    if missing or extra:
+        raise RuntimeError(f"{path} profiled pass: kernels not launched "
+                           f"{missing}, launched and not expected {extra}")
+    if busy is None:
+        log(f"[mesh] {path} profiled pass: {wall:.3f} s; card busy not "
+            "measured (the profiler recorded no device activity)")
+        return
+    log(f"[mesh] {path} profiled pass: {wall:.3f} s wall, card busy "
+        f"{busy * 1e3:.2f} ms (idle share {1 - busy / wall:.4f}); launches "
+        f"{launches}; per kernel (launches recorded, device ms) "
+        f"{per_kernel}")
+    if (per_kernel["compact_runs"][0] == launches["compact_runs"]
+            and per_kernel["pack_hits"][0] != launches["pack_hits"]):
+        raise RuntimeError(f"{path}: the profiler recorded "
+                           f"{per_kernel['pack_hits'][0]} K13 launches of "
+                           f"{launches['pack_hits']}")
 
 
 def check_cells(path, launches, cells, batches, redo=0):
@@ -3167,10 +3398,23 @@ def phase_mesh(eng, cidx, wide, reads, codes, tmp, fi, tu, km, kc, dedup,
             f"({min(rates):.1f}-{max(rates):.1f}) against one device's "
             f"{turns:.1f} in turns ({rate / turns:.3f} x) and phase 5's "
             f"median {p5:.1f} ({rate / p5:.3f} x)")
-    for tool in ("tu", "km"):
-        method, kw = tools[tool]
-        passes_in_turns("mesh", f"mesh_{tool}", lambda m=method, kw=kw:
-                        getattr(meng, m)(reads, os.devnull, **kw), parent)
+    passes_in_turns("mesh", "mesh_tu", lambda: meng.pseudoalign_file(
+        reads, os.devnull, threshold=TAU), parent)
+
+    def km_pass():
+        return meng.kmer_matches_file(reads, os.devnull)
+
+    def km_parent():
+        return parent_mesh_km_pass(meng, km_pass)
+
+    passes_in_turns("mesh", "mesh_km", km_pass, parent, km_parent,
+                    "mesh_km_parent")
+    # the card's time in a profiled kmer-matches pass: K6 launched, no K13
+    # (with --parent also the parent's pass, K6 then K13 a cell a batch)
+    profiled_km("mesh_km", km_pass)
+    if parent is not None:
+        with using_library(parent):
+            profiled_km("mesh_km_parent", km_parent)
     for name, e in (("grid", meng), ("one", one)):
         for tool, (method, kw) in tools.items():
             path = os.path.join(tmp, f"mesh_{name}.{tool}")
@@ -3544,7 +3788,7 @@ def main():
     ap.add_argument("--parent", metavar="DIR",
                     help="a checkout of an earlier commit (git archive into "
                     "a directory .gitignore lists): its kernels are built "
-                    "and K2-K5, K7, K10-K12 timed in turns with this tree's "
+                    "and K2-K7, K10-K13 timed in turns with this tree's "
                     "(phases 4, 10, 10b, 11), and TU, kmer-matches, the "
                     "mesh's TU and kmer-matches, cuckoo FI and staged FI "
                     "passes run in turns on both")
@@ -3554,8 +3798,9 @@ def main():
     phase_build()
     parent = parent_library(args.parent) if args.parent else None
     if args.parent:
-        global PARENT_PROBES
+        global PARENT_PROBES, PARENT_MESH_KM
         PARENT_PROBES = parent_probes(args.parent)
+        PARENT_MESH_KM = parent_mesh_km()
     tmp = tempfile.mkdtemp(prefix="fulgor_smoke_")
     try:
         idx, codes, names, reads = phase_index(tmp, args.genomes, args.reads,
@@ -3628,14 +3873,17 @@ def main():
         + (f"; over {cards['cards']} cards FI {cards['rate']:.1f} reads/s "
            f"against one card's {cards['one']:.1f} in turns" if cards
            else ""))
-    # each kernel's launches on its own path's last timed run
+    # each kernel's launches on its own path's last timed run; K13's on
+    # query_conservation_packed's (phase 11 (a))
+    rows_by_name = {r["name"]: r for r in rows}
     path_of = {"tu_mask": tu, "km_scores": km, "compact_runs": kc,
                "cuckoo_lookup": cuckoo, "pack_codes": array,
                "first_set_bits": wide,
                "staged_probe": {"launches": probes["staged_fi"][0]},
                "anchored_probe": {"launches": probes["anchored_fi"][0]},
                "runs_scores": {"launches": mesh["tu_launches"]},
-               "pack_hits": {"launches": mesh["km_launches"]},
+               "pack_hits": {"launches": rows_by_name["pack_hits"][
+                   "path_launches"]},
                "minidict_v1_verify": v1}
     out = []
     for r in rows:

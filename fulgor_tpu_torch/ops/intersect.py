@@ -29,9 +29,11 @@ kmer-matches).
 K6 `compact_runs` replaces mask_positions, _run_bounds, compact_runs and
 compact_runs_starts: each read's runs of consecutive positive windows with
 equal csid as a run list of a fixed budget R (csid, start, length), with
-the read's run count and positive-window count. It feeds kmer-conservation
-(query_conservation_runs_packed), --deduplicate (query_distinct_runs_packed)
-and query_runs_tu_packed.
+the read's run count and positive-window count, and, when asked, the read's
+hit words in the same launch. It feeds kmer-conservation
+(query_conservation_runs_packed), --deduplicate (query_distinct_runs_packed),
+query_runs_tu_packed and the mesh's steps (its kmer-matches takes the hit
+words).
 
 K9 `first_set_bits` replaces first_set_bits: each (B, C32) result row's
 colour count and its first T colour ids, ascending, the lists fetch of
@@ -39,7 +41,8 @@ query_fi_lists_packed and query_tu_lists_packed.
 
 K13 `pack_hits` replaces _pack_hits and query_conservation_packed's u16
 narrowing: the windows' positivity as bit words, and csid narrowed to u16
-(0xFFFF where negative) in the same pass.
+(0xFFFF where negative) in the same pass. It shares K6's front end
+(csrc/runs.cu).
 
 dense (S, C32), csid (B, Wk) int32 bit patterns, hit (B, Wk) bool. Each
 wrapper launches its csrc/ kernel for CUDA tensors and runs the plain
@@ -225,13 +228,14 @@ def _first_positions(mask, R: int):
     return out
 
 
-def compact_runs_plain(hit, csid, R: int):
+def compact_runs_plain(hit, csid, R: int, hit_words: bool = False):
     """Plain PyTorch run compaction (any device), as fulgor_tpu's
     _run_bounds computes it: run starts and ends by comparing each window
     with its neighbours, their first R positions by a cumulative-sum rank.
     -> (run_csid (B, R) int32, INVALID-padded; run_start, run_len (B, R)
     int16 bit patterns of u16, 0-padded; total (B,) int32, every run of the
-    read; npos (B,) int32)."""
+    read; npos (B,) int32), and with hit_words the read's hit words as
+    pack_hits_plain packs them ((B, ceil(Wk/32)) int32)."""
     B, Wk = hit.shape
     same = hit[:, 1:] & hit[:, :-1] & (csid[:, 1:] == csid[:, :-1])
     cont = torch.zeros_like(hit)
@@ -244,19 +248,21 @@ def compact_runs_plain(hit, csid, R: int):
     epos = _first_positions(is_end, R)
     valid = (torch.arange(R, device=hit.device)[None, :] < total[:, None])
     run_csid = torch.where(valid, csid.gather(1, spos.clamp(max=Wk - 1)), -1)
-    return (run_csid, torch.where(valid, spos, 0).to(torch.int16),
-            torch.where(valid, epos - spos + 1, 0).to(torch.int16), total,
-            hit.sum(dim=1, dtype=torch.int32))
+    out = (run_csid, torch.where(valid, spos, 0).to(torch.int16),
+           torch.where(valid, epos - spos + 1, 0).to(torch.int16), total,
+           hit.sum(dim=1, dtype=torch.int32))
+    return out + (pack_hits_plain(hit)[0],) if hit_words else out
 
 
-def compact_runs(hit, csid, R: int):
+def compact_runs(hit, csid, R: int, hit_words: bool = False):
     """Each read's runs of equal csid, the first R of them -> (run_csid
     (B, R) int32, run_start (B, R) int16, run_len (B, R) int16, total (B,)
-    int32, npos (B,) int32), as compact_runs_plain. Overflow is total > R.
-    1 <= R; R may exceed Wk (fulgor_tpu's --deduplicate budget is up to
-    2 * Wk)."""
+    int32, npos (B,) int32), and with hit_words the read's hit words
+    ((B, ceil(Wk/32)) int32, from the same launch), as compact_runs_plain.
+    Overflow is total > R. 1 <= R; R may exceed Wk (fulgor_tpu's
+    --deduplicate budget is up to 2 * Wk)."""
     if hit.device.type == "cpu":
-        return compact_runs_plain(hit, csid, R)
+        return compact_runs_plain(hit, csid, R, hit_words)
     if hit.device.type != "cuda":
         raise ValueError(f"compact_runs: unsupported device {hit.device}")
     B, Wk = hit.shape
@@ -274,16 +280,20 @@ def compact_runs(hit, csid, R: int):
     run_len = torch.empty((B, R), dtype=torch.int16, device=dev)
     total = torch.empty(B, dtype=torch.int32, device=dev)
     npos = torch.empty(B, dtype=torch.int32, device=dev)
+    out = (run_csid, run_start, run_len, total, npos)
+    if hit_words:
+        out += (torch.empty((B, (Wk + 31) // 32), dtype=torch.int32,
+                            device=dev),)
     if B == 0:
-        return run_csid, run_start, run_len, total, npos
+        return out
     lib = kernels.library()
-    rc = lib.fulgor_compact_runs(hit.data_ptr(), csid.data_ptr(), B, Wk, R,
-                                 run_csid.data_ptr(), run_start.data_ptr(),
-                                 run_len.data_ptr(), total.data_ptr(),
-                                 npos.data_ptr(), kernels.stream_of(hit))
+    args = (hit.data_ptr(), csid.data_ptr(), B, Wk, R,
+            *(t.data_ptr() for t in out))
+    rc = (lib.fulgor_compact_runs_hits if hit_words
+          else lib.fulgor_compact_runs)(*args, kernels.stream_of(hit))
     kernels.check(rc, "compact_runs")
     kernels.launches["compact_runs"] += 1
-    return run_csid, run_start, run_len, total, npos
+    return out
 
 
 def _popcount(x):

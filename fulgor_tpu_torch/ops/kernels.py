@@ -10,12 +10,13 @@ Each C entry point launches on the stream it is given and returns
 cudaGetLastError(); `check` raises on a non-zero code. `launches` counts
 the kernel launches made by the wrappers in ops/prep.py (K1 window_prep,
 K8 pack_codes), ops/probe.py (K2 minidict2_probe), ops/intersect.py (K3
-fi_and, K4 tu_mask, K5 km_scores, K6 compact_runs, K9 first_set_bits, K12
-runs_scores: runs_mask and runs_scores, K13 pack_hits), ops/lookup.py (K7
-cuckoo_lookup), ops/staged.py (K10 staged_probe: its three kernels, not the
-K2 launches between them), ops/anchored.py (K11 anchored_probe: its
-three kernels) and ops/minidict.py (K14 minidict_v1_verify, not the K8
-and K1 launches before it): one per launch, nowhere else.
+fi_and, K4 tu_mask, K5 km_scores, K6 compact_runs: both of its C entries,
+K9 first_set_bits, K12 runs_scores: runs_mask and runs_scores, K13
+pack_hits), ops/lookup.py (K7 cuckoo_lookup), ops/staged.py (K10
+staged_probe: its three kernels, not the K2 launches between them),
+ops/anchored.py (K11 anchored_probe: its three kernels) and
+ops/minidict.py (K14 minidict_v1_verify, not the K8 and K1 launches before
+it): one per launch, nowhere else.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ BUILD = os.path.join(_PKG, "_build")
 LIB = os.path.join(BUILD, "libfulgor_kernels.so")
 SOURCES = ("prep.cu", "probe.cu", "intersect.cu", "union.cu", "runs.cu",
            "cuckoo.cu", "pack.cu", "lists.cu", "staged.cu", "anchored.cu",
-           "hits.cu", "minidict.cu")
+           "minidict.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 launches = {"window_prep": 0, "minidict2_probe": 0, "fi_and": 0,
@@ -68,8 +69,8 @@ def _stale() -> bool:
     return os.path.getmtime(LIB) < newest
 
 
-def build(csrc: str = CSRC, lib: str = LIB) -> str:
-    """Compile every source of `csrc` in parallel and link them into the
+def build(csrc: str = CSRC, lib: str = LIB, sources=SOURCES) -> str:
+    """Compile the sources of `csrc` in parallel and link them into the
     library `lib` (another checkout's sources and library: chip_smoke.py's
     --parent). -> the compiler's output (ptxas register and spill report
     included), also written to build.log beside the library."""
@@ -77,7 +78,7 @@ def build(csrc: str = CSRC, lib: str = LIB) -> str:
     out_dir = os.path.dirname(lib)
     os.makedirs(out_dir, exist_ok=True)
     procs = []
-    for src in SOURCES:
+    for src in sources:
         obj = os.path.join(out_dir, src.replace(".cu", ".o"))
         procs.append((src, obj, subprocess.Popen(
             [nvcc, *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -105,44 +106,43 @@ def build(csrc: str = CSRC, lib: str = LIB) -> str:
     return text
 
 
-def bind(lib):
-    """Set the argument and result types of every C entry point of a
-    loaded kernel library. -> lib"""
-    P, I = ct.c_void_p, ct.c_int
-    lib.fulgor_window_prep.argtypes = [P, P, I, I, I, I] + [P] * 12 + [P]
-    lib.fulgor_minidict2_probe.argtypes = (
-        [P, ct.c_int64, P, ct.c_int64, P, ct.c_int64]
-        + [P] * 10 + [ct.c_int64, I, I, ct.c_uint32, I, I, I] + [P] * 7
-        + [P])
-    lib.fulgor_fi_and.argtypes = [P, I, P, P, I, I, P, P]
-    lib.fulgor_tu_mask.argtypes = [P, I, I, P, P, I, I, P, P, P]
-    lib.fulgor_km_scores.argtypes = [P, I, I, P, P, I, I, P, P, P]
-    lib.fulgor_compact_runs.argtypes = [P, P, I, I, I] + [P] * 5 + [P]
-    lib.fulgor_cuckoo_lookup.argtypes = [P, I, P, P, I, I, I, P, P, P]
-    lib.fulgor_pack_codes.argtypes = [P, I, I, P, P, P]
-    lib.fulgor_first_set_bits.argtypes = [P, I, I, I, P, P, P]
-    lib.fulgor_staged_split.argtypes = [P] * 4 + [I] * 5 + [P] * 6
-    lib.fulgor_staged_merge.argtypes = [P] * 11 + [I] * 4 + [P] * 4
-    lib.fulgor_anchored_anchors.argtypes = [P] * 3 + [I] * 3 + [P] * 4
-    lib.fulgor_anchored_extend.argtypes = (
-        [P, ct.c_int64, P] + [P] * 2 + [P] * 7 + [I] * 5 + [P] * 6)
-    lib.fulgor_anchored_merge.argtypes = [P] * 4 + [I] * 3 + [P] * 4
-    lib.fulgor_runs_scores.argtypes = [P, I, I, P, P, I, I, I, P, P, I, P,
-                                       P]
-    lib.fulgor_pack_hits.argtypes = [P, P, I, I, P, P, P]
-    L = ct.c_int64
-    lib.fulgor_minidict_v1_verify.argtypes = (
-        [P, L, P, L, P, L] + [P] * 8 + [L, I, I, I] + [P] * 3 + [P])
-    for fn in (lib.fulgor_window_prep, lib.fulgor_minidict2_probe,
-               lib.fulgor_fi_and, lib.fulgor_tu_mask,
-               lib.fulgor_km_scores, lib.fulgor_compact_runs,
-               lib.fulgor_cuckoo_lookup, lib.fulgor_pack_codes,
-               lib.fulgor_first_set_bits, lib.fulgor_staged_split,
-               lib.fulgor_staged_merge, lib.fulgor_anchored_anchors,
-               lib.fulgor_anchored_extend, lib.fulgor_anchored_merge,
-               lib.fulgor_runs_scores, lib.fulgor_pack_hits,
-               lib.fulgor_minidict_v1_verify):
-        fn.restype = I
+_P, _I, _L = ct.c_void_p, ct.c_int, ct.c_int64
+# every C entry point: its argument types
+ENTRIES = {
+    "fulgor_window_prep": [_P, _P, _I, _I, _I, _I] + [_P] * 12 + [_P],
+    "fulgor_minidict2_probe": (
+        [_P, _L, _P, _L, _P, _L] + [_P] * 10
+        + [_L, _I, _I, ct.c_uint32, _I, _I, _I] + [_P] * 7 + [_P]),
+    "fulgor_fi_and": [_P, _I, _P, _P, _I, _I, _P, _P],
+    "fulgor_tu_mask": [_P, _I, _I, _P, _P, _I, _I, _P, _P, _P],
+    "fulgor_km_scores": [_P, _I, _I, _P, _P, _I, _I, _P, _P, _P],
+    "fulgor_compact_runs": [_P, _P, _I, _I, _I] + [_P] * 5 + [_P],
+    "fulgor_compact_runs_hits": [_P, _P, _I, _I, _I] + [_P] * 6 + [_P],
+    "fulgor_cuckoo_lookup": [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P],
+    "fulgor_pack_codes": [_P, _I, _I, _P, _P, _P],
+    "fulgor_first_set_bits": [_P, _I, _I, _I, _P, _P, _P],
+    "fulgor_staged_split": [_P] * 4 + [_I] * 5 + [_P] * 6,
+    "fulgor_staged_merge": [_P] * 11 + [_I] * 4 + [_P] * 4,
+    "fulgor_anchored_anchors": [_P] * 3 + [_I] * 3 + [_P] * 4,
+    "fulgor_anchored_extend": (
+        [_P, _L, _P] + [_P] * 2 + [_P] * 7 + [_I] * 5 + [_P] * 6),
+    "fulgor_anchored_merge": [_P] * 4 + [_I] * 3 + [_P] * 4,
+    "fulgor_runs_scores": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _I, _P,
+                           _P],
+    "fulgor_pack_hits": [_P, _P, _I, _I, _P, _P, _P],
+    "fulgor_minidict_v1_verify": (
+        [_P, _L, _P, _L, _P, _L] + [_P] * 8 + [_L, _I, _I, _I] + [_P] * 3
+        + [_P]),
+}
+
+
+def bind(lib, names=ENTRIES):
+    """Set the argument and result types of the C entry points `names`
+    (every one by default) of a loaded kernel library. -> lib"""
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = ENTRIES[name]
+        fn.restype = ct.c_int
     return lib
 
 

@@ -10,7 +10,8 @@ One step over the grid, as in fulgor_tpu:
   phase 1  every cell probes its OWN block of the batch, the reads split
            over both axes (cell (d, p) takes rows [(d P + p) b,
            (d P + p + 1) b), b = B / (D P)), and builds its compact
-           (csid, count) runs: K1 -> K2 (or K7) -> K6;
+           (csid, count) runs: K1 -> K2 (or K7) -> K6 (kmer-matches: with
+           the cell's hit words, from the same K6 launch);
   phase 2  each cell of a data row gathers the runs of that row's cells,
            in cell order: a copy to its device (after an event recorded on
            the source cell's stream) and a concatenation (fulgor_tpu's
@@ -44,9 +45,7 @@ import contextlib
 import numpy as np
 import torch
 
-from ..ops.intersect import (
-    compact_runs, fi_and, pack_hits, runs_mask, runs_scores,
-)
+from ..ops.intersect import compact_runs, fi_and, runs_mask, runs_scores
 from ..ops.pipeline import (
     pack_unpacked,
     query_conservation_runs_packed,
@@ -270,15 +269,17 @@ def _per_cell(mesh: Mesh, fn) -> list:
 
 
 def _probe_runs(mesh, table, codes2, bad, k, width, R, dparams,
-                probe_budget=None):
+                probe_budget=None, hit_words=False):
     """Phase 1 on every cell -> [(hit, run_csid, run_len, npos, ovf)]: ovf =
-    more than R runs or any probe overflow of the read."""
+    more than R runs or any probe overflow of the read; with hit_words each
+    tuple also ends with the cell's hit words, from K6's launch."""
     def cell(c, dev):
         hit, csid, dovf = query_window_csids_packed(
             table[dev], codes2[c], bad[c], k=k, width=width, dparams=dparams,
             probe_budget=probe_budget)
-        rc, _start, rl, total, npos = compact_runs(hit, csid, R)
-        return hit, rc, rl, npos, (total > R) | dovf.any(dim=1)
+        rc, _start, rl, total, npos, *hitw = compact_runs(hit, csid, R,
+                                                          hit_words)
+        return (hit, rc, rl, npos, (total > R) | dovf.any(dim=1), *hitw)
 
     return _per_cell(mesh, cell)
 
@@ -373,22 +374,23 @@ def make_sharded_kmer_matches(mesh: Mesh, k: int, width: int,
                               dparams=None, probe_budget=None):
     """-> fn(table, bits, codes2, bad) -> (hitw (B, ceil(Wk/32)) int32, scores
     (B, num_colors_padded) int16 bit patterns of u16 Blocks by (data row,
-    colour shard), ovf (B,) bool) (fulgor_tpu mesh.py:263): K13 packs each
-    cell's own hit words, K12 scores the gathered runs on each shard.
-    probe_budget as in make_sharded_threshold_union_packed."""
+    colour shard), ovf (B,) bool) (fulgor_tpu mesh.py:263): each cell's
+    hit words come from the K6 launch that builds its runs, as fulgor_tpu
+    packs them in the step that builds its runs; K12 scores the gathered
+    runs on each shard. probe_budget as in
+    make_sharded_threshold_union_packed."""
     _check_padded(mesh, num_colors_padded)
 
     def step(table, bits, codes2, bad):
         cells = _probe_runs(mesh, table, codes2, bad, k, width, max_runs,
-                            dparams, probe_budget)
-        hitw = _per_cell(mesh, lambda c, dev: pack_hits(cells[c][0])[0])
+                            dparams, probe_budget, hit_words=True)
 
         def score(q, dev, rc, rl):
             shard = bits[q][dev]
             return runs_scores(shard, rc, rl, 32 * shard.shape[1])
 
         scores = _colour_stage(mesh, [(c[1], c[2]) for c in cells], score)
-        return (Blocks.by_rows(hitw), scores,
+        return (Blocks.by_rows(c[5] for c in cells), scores,
                 Blocks.by_rows(c[4] for c in cells))
 
     return step

@@ -76,7 +76,7 @@ The mesh (parallel/mesh.py), as in fulgor_tpu: with more than one card
 visible and no device named, or with use_mesh=True, or given mesh=, the
 stream's batches are sharded over a (data, colour) grid of devices in this
 one process: FI (K3) and TU (K12's mask) over runs gathered along colour,
-kmer-matches (K13, K12's scores), kmer-conservation, --deduplicate, the runs
+kmer-matches (K6's hit words, K12's scores), kmer-conservation, --deduplicate, the runs
 fetch and the no-dense TU data-parallel, every probe at the default budget
 (so the overflow set differs from one device's; the output does not). The
 lists fetch is not taken under a mesh (its colour step is the dense one).
@@ -585,7 +585,7 @@ class QueryEngine:
         return mask, ovf
 
     def _mesh_km(self, chunk, probe_budget=None) -> tuple:
-        """kmer-matches of a chunk over the mesh (K13's hit words, K12's
+        """kmer-matches of a chunk over the mesh (K6's hit words, K12's
         scores over the gathered runs) -> (hitw, scores, ovf) Blocks."""
         W = chunk.shape[1]
         return self._mesh_run(

@@ -12,7 +12,8 @@ steps once for both (through its persistent compile cache):
 - the colour steps (full intersection, threshold union, kmer-matches) on
   grids of CPU cells (4, 2), (2, 4) and (1, 1) against fulgor_tpu's
   builders on the virtual 8-device CPU mesh of the same layout: ovf equal,
-  the rest equal on every read without overflow;
+  the rest equal on every read without overflow; the kmer-matches step
+  with pack_hits made to raise (its hit words come from K6's call);
 - the data-parallel and unpacked steps against the port's own one-device
   steps;
 - the engine on a (4, 2) grid: FI and TU(0.8) against fulgor_tpu's meshed
@@ -279,6 +280,55 @@ def test_colour_steps_match_reference(setup, tool, layout):
     assert ovf.mean() < 0.25
     keep = ~ovf
     for g, w in pairs:
+        g = g.numpy()
+        assert g.shape == w.shape
+        np.testing.assert_array_equal(g[keep], w[keep])
+
+
+def test_kmer_matches_step_takes_k6_hit_words(setup, monkeypatch):
+    """The port's kmer-matches step on a (4, 2) grid calls no pack_hits
+    (K13): each cell's hit words come from its compact_runs call (K6's
+    hit-word instance on a card). pack_hits made to raise; hit words,
+    scores and ovf still equal fulgor_tpu's step on every read without
+    overflow."""
+    _tmp, _jidx, tidx, chunk, _q = setup
+    import fulgor_tpu_torch.ops.intersect as TI
+
+    def refuse(*_a, **_k):
+        raise AssertionError("the kmer-matches step called pack_hits")
+
+    for mod in (TI, TP, M):
+        monkeypatch.setattr(mod, "pack_hits", refuse, raising=False)
+    asked = []
+
+    def spy(hit, csid, R, hit_words=False):
+        asked.append(hit_words)
+        return TI.compact_runs(hit, csid, R, hit_words)
+
+    monkeypatch.setattr(M, "compact_runs", spy)
+    table_np, dparams, codes2, bad, _t, _d = _inputs(tidx, chunk)
+    layout = (4, 2)
+    jmesh, tmesh = _grids(layout)
+    bits = M.pad_bits_for_mesh(tidx.dense_color_bits(), layout[1])
+    Cpad = bits.shape[1] * 32
+    jtable = tuple(jax.device_put(a, NamedSharding(jmesh, PS()))
+                   for a in table_np)
+    jbits = jax.device_put(bits, NamedSharding(jmesh, PS(None, "color")))
+    jc2, jbd = JM.place_packed(jmesh, codes2, bad)
+    want = JM.make_sharded_kmer_matches(
+        jmesh, K_LEN, WIDTH, Cpad, WK, dparams=dparams)(
+            jtable, jbits, jc2, jbd)
+    got = M.make_sharded_kmer_matches(
+        tmesh, K_LEN, WIDTH, Cpad, WK, dparams=dparams)(
+            M.place_table(tmesh, table_np), M.place_bits(tmesh, bits),
+            *M.place_packed(tmesh, codes2, bad))
+    assert asked == [True] * tmesh.size
+    ovf = got[2].numpy()
+    np.testing.assert_array_equal(ovf, np.asarray(want[2]))
+    keep = ~ovf
+    assert keep.mean() > 0.75
+    for g, w in ((got[0], np.asarray(want[0]).view(np.int32)),
+                 (got[1], np.asarray(want[1]).view(np.int16))):
         g = g.numpy()
         assert g.shape == w.shape
         np.testing.assert_array_equal(g[keep], w[keep])

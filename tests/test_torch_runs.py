@@ -1,7 +1,9 @@
 """Run compaction (kernel K6): the port's plain PyTorch version against
 fulgor_tpu's compact_runs and compact_runs_starts, bit-exact (tolerance 0),
-at widths around the 32-window chunk of the kernel and at run budgets from
-1 to twice the window count.
+at widths around the 32-window chunk of the kernel and its group of eight
+chunks, and at run budgets from 1 to twice the window count; its hit words
+(the mesh's kmer-matches takes them) against fulgor_tpu's _pack_hits and
+the mesh step's padded pack_bool_bits.
 
 Each batch holds all-miss rows, one-csid rows, runs that cross the
 32-window boundary, a csid that recurs after another run and after a miss,
@@ -14,14 +16,15 @@ import pytest
 import torch
 
 from fulgor_tpu.ops import intersect as J
+from fulgor_tpu.ops import pipeline as JP
 from fulgor_tpu_torch.ops.intersect import compact_runs
 
 from tests.test_torch_threads import one_thread  # noqa: F401
 
 B = 64
 INV = np.uint32(0xFFFFFFFF)
-CASES = [(wk, r) for wk in (1, 31, 32, 33, 130)
-         for r in sorted({1, 2, 16, wk, 2 * wk})]
+CASES = [(wk, r, words) for wk in (1, 31, 32, 33, 130, 257)
+         for r in sorted({1, 2, 16, wk, 2 * wk}) for words in (False, True)]
 
 
 def _inputs(Wk, seed):
@@ -45,13 +48,22 @@ def _inputs(Wk, seed):
     return hit, csid
 
 
-@pytest.mark.parametrize("Wk,R", CASES)
-def test_compact_runs_matches_jax(Wk, R):
+@pytest.mark.parametrize("Wk,R,words", CASES)
+def test_compact_runs_matches_jax(Wk, R, words):
     hit, csid = _inputs(Wk, seed=Wk * 1000 + R)
     got = [t.numpy() for t in compact_runs(torch.from_numpy(hit),
                                            torch.from_numpy(csid.view(np.int32)),
-                                           R)]
-    run_csid, run_start, run_len, total, npos = got
+                                           R, words)]
+    assert len(got) == 5 + words
+    run_csid, run_start, run_len, total, npos = got[:5]
+    if words:  # (B, ceil(Wk/32)) words, bits past Wk clear
+        hitw = got[5].view(np.uint32)
+        assert hitw.shape == (B, (Wk + 31) // 32)
+        np.testing.assert_array_equal(
+            hitw, np.asarray(JP._pack_hits(jnp.asarray(hit))))
+        padded = np.pad(hit, ((0, 0), (0, (-Wk) % 32)))
+        np.testing.assert_array_equal(
+            hitw, np.asarray(J.pack_bool_bits(jnp.asarray(padded))))
     assert run_csid.shape == run_start.shape == run_len.shape == (B, R)
     jh, jc = jnp.asarray(hit), jnp.asarray(csid)
     rc, cnt, ovf = (np.asarray(a) for a in J.compact_runs(jh, jc, R))
