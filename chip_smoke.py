@@ -34,7 +34,13 @@ last line, which is printed only when every phase passed:
               on seeded edge batches (k 15 and 31, W 32, 160 and 1,024, 777
               reads, 16 of them all N; k = 15 on a table of the first 4 Mbp
               of the unitig text's 15-mers), K8
-              also against the host packer's bytes, with
+              also against the host packer's bytes and on seeded edge
+              batches (L 1, 15, 16, 17, 31, 32, 33, 160 and 1,024, B 1, 7
+              and 32,768, codes 0 to 255, each batch also from rows that
+              start at an odd byte offset; at L % 32 == 0 also against the
+              host packer's bytes), timed at phase 4's batch and at the v1
+              lookup's piece width, 1,024 (with --parent in turns with
+              DIR's K8), with
               times (kernels: median device time per launch from
               torch.profiler, with L2 flushed before each launch and warm;
               plain versions: CUDA events) and bounds; then K4 and K5 on
@@ -84,7 +90,13 @@ last line, which is printed only when every phase passed:
               the same dictionary, unitigs and colour-set ids), the
               large-colour regime of fulgor_tpu's engine. K9 against its
               plain version bit for bit on one batch's K3 rows at C32 =
-              143 and on seeded edge rows, at T in {1, 3, 64}, timed.
+              143 and on seeded edge rows, at T in {1, 3, 64}, and on
+              seeded edge batches (C32 1, 31, 32, 33, 143 and 1,024, B 1,
+              7 and 32,768, T 1, 3, 31, 32, 33, 64, 65 and 128: rows of
+              exactly T - 1, T and T + 1 bits, the T-th bit in a chunk's
+              last word and in the next chunk's first, all-ones, empty and
+              bit-31-only rows); timed at T_LIST (with --parent in turns
+              with DIR's K9), 1 and 3.
               (a) The default strategy, runs fetch: FI (no K3) and TU(0.8)
               (K4), each a warm-up, two timed runs (FI's key cache
               emptied before each), a profiled run and a run to a file;
@@ -401,7 +413,9 @@ PATH_KERNELS.update({
                 _NOT_MESH + ("fi_and", "tu_mask", "km_scores") + K13),
     "mesh_km": (MINI + ("compact_runs",) + MESHK,
                 _NOT_MESH + ("fi_and", "tu_mask", "km_scores") + K13),
-    "mesh_km_parent": (MINI + ("compact_runs",) + MESHK + K13,
+    # the parent's own step: an older one launched K13 after K6, a newer
+    # one takes K6's hit words, so K13 is neither needed nor forbidden
+    "mesh_km_parent": (MINI + ("compact_runs",) + MESHK,
                        _NOT_MESH + ("fi_and", "tu_mask", "km_scores")),
     "mesh_kc": (MINI + ("compact_runs",),
                 _NOT_MESH + ("fi_and", "tu_mask", "km_scores") + MESHK
@@ -428,7 +442,7 @@ MESH_EXACT = {
     "mesh_fi": ("compact_runs", "fi_and"),
     "mesh_tu": ("compact_runs", "runs_scores"),
     "mesh_km": ("compact_runs",) + MESHK,
-    "mesh_km_parent": ("compact_runs",) + MESHK + K13,
+    "mesh_km_parent": ("compact_runs",) + MESHK,
     "mesh_kc": (),  # its inline redo runs K6 too
     "mesh_dedup": ("compact_runs",),
     "mesh_wide_fi": ("compact_runs",),
@@ -498,6 +512,14 @@ K12_EDGE = ((1, 1), (1, 1024), (8, 33), (8, 130), (72, 130), (143, 1024))
 RUNS_EDGE = ((8191, 1), (8191, 31), (8191, 32), (8191, 33), (8191, 130),
              (8191, 257), (8191, 1024), (1, 130), (1, 1024), (32768, 130))
 K12_EDGE_NPOS = 70_000
+# K9's seeded edge batches: C32 around a 32-word chunk and past K9's group
+# of eight chunks, one row, an odd count of rows and phase 4's batch, T
+# around a group of 32 slots; K8's: L around a 16-base word and a 32-base
+# piece, phase 4's width and the v1 lookup's piece, the same three B
+K9_EDGE_C32 = (1, 31, 32, 33, 143, 1024)
+K9_EDGE_T = (1, 3, 31, 32, 33, 64, 65, 128)
+K8_EDGE_L = (1, 15, 16, 17, 31, 32, 33, 160, 1024)
+EDGE_B = (1, 7, 32768)
 K7_EDGE = ((31, 32), (31, 160), (31, 1024), (15, 32), (15, 160), (15, 1024))
 K7_EDGE_BASES = 4_000_000
 K7_L2_BASES = 2_000_000
@@ -721,7 +743,7 @@ def parent_library(parent):
     """The kernel library of another checkout of this repository (--parent:
     an earlier commit unpacked with git archive), built from the sources of
     its csrc/ into its own _build/ and bound as this one, its C entries
-    only: its K2-K7, K12 and K13 are timed in turns with this tree's
+    only: its K2-K9, K12 and K13 are timed in turns with this tree's
     (in_turns), and its kernels drive TU, kmer-matches, the mesh's TU and
     kmer-matches, cuckoo FI and staged FI passes in turns with this tree's
     (passes_in_turns). The C entry points that both trees define must take
@@ -735,10 +757,11 @@ def parent_library(parent):
     t0 = time.perf_counter()
     text = kernels.build(csrc, lib, sources)
     log(f"[build] the parent's kernels ({parent}) built in "
-        f"{time.perf_counter() - t0:.2f} s; its K2-K7, K10-K13:")
+        f"{time.perf_counter() - t0:.2f} s; its K2-K13:")
     log_resources("build", text, ("probe.cu", "intersect.cu", "union.cu",
                                   "runs.cu", "hits.cu", "cuckoo.cu",
-                                  "staged.cu", "anchored.cu"))
+                                  "pack.cu", "lists.cu", "staged.cu",
+                                  "anchored.cu"))
     defined = set()
     for f in sources:
         with open(os.path.join(csrc, f)) as fh:
@@ -778,9 +801,9 @@ def parent_probes(parent):
 
 def parent_mesh_km():
     """The parent's make_sharded_kmer_matches, from the package that
-    parent_probes imported (its step launched K13 on each cell's hits after
-    K6, and its wrappers launch the parent's kernels), its outputs given as
-    this tree's Blocks."""
+    parent_probes imported (an older step launched K13 on each cell's hits
+    after K6; its wrappers launch the parent's kernels), its outputs given
+    as this tree's Blocks."""
     import importlib
 
     pm = importlib.import_module("parent_fulgor_tpu_torch.parallel.mesh")
@@ -1225,13 +1248,73 @@ def check_k7_edges(cidx, table31, dev):
     return err
 
 
+def edge_codes(rng, B, L):
+    """(B, L) uint8 codes for K8, seeded: bases 0..3 with a tenth of them
+    any byte 0..255, and every third row all bytes 0..255."""
+    x = rng.integers(0, 4, size=(B, L), dtype=np.uint8)
+    odd = rng.random((B, L)) < 0.1
+    x[odd] = rng.integers(0, 256, size=int(odd.sum()), dtype=np.uint8)
+    x[::3] = rng.integers(0, 256, size=x[::3].shape, dtype=np.uint8)
+    return x
+
+
+def check_k8_edges(dev) -> int:
+    """K8 against its plain version on the seeded edge batches (L x B in
+    K8_EDGE_L x EDGE_B), bit for bit, each from rows that start 16-byte
+    aligned and from the same rows starting at an odd byte offset (the
+    byte-load instance); at L % 32 == 0 its bytes also against the host
+    packer's. -> the largest max_abs_err."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(8)
+    err, checks = 0, 0
+    for L in K8_EDGE_L:
+        for B in EDGE_B:
+            x = edge_codes(rng, B, L)
+            aligned = torch.from_numpy(x).to(dev)
+            buf = torch.empty(B * L + 1, dtype=torch.uint8, device=dev)
+            buf[1:].copy_(aligned.view(-1))
+            odd = buf[1:].view(B, L)
+            if odd.data_ptr() % 2 != 1 or not odd.is_contiguous():
+                raise RuntimeError("the odd-offset view is not one")
+            want = pack_codes_plain(aligned)
+            host = pack_reads_host(x) if L % 32 == 0 else None
+            for what, c in (("aligned", aligned), ("odd offset", odd)):
+                got = pack_codes(c)
+                torch.cuda.synchronize()
+                e = max_abs_err(got, want)
+                wire = True
+                if host is not None:
+                    c2, bd = host
+                    wire = (np.array_equal(
+                        got[0].view(torch.uint8).cpu().numpy(), c2)
+                        and np.array_equal(
+                            got[1].view(torch.uint8).cpu().numpy(), bd))
+                if e or not wire:
+                    log(f"[kernels] pack_codes edge batch B {B}, L {L}, "
+                        f"{what}: max_abs_err {e}, the host packer's bytes "
+                        f"{wire}")
+                    if not wire:
+                        raise RuntimeError("pack_codes differs from "
+                                           "pack_reads_host")
+                err = max(err, e)
+                checks += 1
+            del aligned, buf, odd
+    log(f"[kernels] pack_codes on {checks} seeded edge batches (L "
+        f"{K8_EDGE_L} x B {EDGE_B}, aligned and at an odd byte offset; at L "
+        f"% 32 == 0 also the host packer's bytes): max_abs_err {err} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return err
+
+
 def phase_cuckoo_pack(eng, ceng, chunk, c2, bd, prep, flush, parent):
     """K7 on the kernels batch against its plain version, and against K2
     at the redo budget on every window K2 decides, and on K7_EDGE's edge
     batches (check_k7_edges); timed, with `parent` in turns with the
     parent's K7, and against a table that L2 holds (k7_in_l2). K8 on the
     same chunk's codes against its plain version and the host packer's
-    bytes. -> the two kernels' rows."""
+    bytes, and on K8's edge batches (check_k8_edges); timed on the chunk
+    and on its bases in rows of 1,024, with `parent` in turns with the
+    parent's K8. -> the two kernels' rows."""
     table = ceng.table
     Wk = WIDTH - K + 1
     lanes = BATCH * Wk
@@ -1290,7 +1373,17 @@ def phase_cuckoo_pack(eng, ceng, chunk, c2, bd, prep, flush, parent):
         f"packer's: {wire}")
     if not wire:
         raise RuntimeError("pack_codes differs from pack_reads_host")
-    ms8, warm8 = kernel_times(lambda: pack_codes(codes), "pack_codes", flush)
+    err8 = max(err8, check_k8_edges(eng.device))
+    ms8, warm8 = in_turns(
+        "kernels", "pack_codes", f"phase 4's batch (B {BATCH}, L {WIDTH})",
+        (BATCH * WIDTH + BATCH * (WIDTH // 16 + WIDTH // 32) * 4,),
+        lambda: pack_codes(codes), flush, parent)
+    # the same bases in rows of the v1 lookup's pieces
+    long_rows = codes.view(-1, 1024)
+    in_turns("kernels", "pack_codes",
+             f"the v1 lookup's piece width (B {long_rows.shape[0]}, L 1024)",
+             (long_rows.numel() * (1 + 3 / 8),),
+             lambda: pack_codes(long_rows), flush, parent)
     row8 = dict(
         name="pack_codes", source="fulgor_tpu_torch/csrc/pack.cu",
         replaces="fulgor_tpu/ops/minidict2.py:919", max_abs_err=err8, ms=ms8,
@@ -2050,12 +2143,90 @@ def phase_wide_index(idx):
     return wide
 
 
-def phase_first_set_bits(eng, weng, codes):
+def edge_bit_rows(rng, B, C32, Ts):
+    """(B, C32) u32 rows for K9, seeded: the edge rows (empty, all ones,
+    bit 31 of the first or the last word alone; for each T in Ts, T - 1, T
+    and T + 1 set bits at random places, and T bits whose T-th is in a
+    chunk's last word or the next chunk's first (words 31 and 32, 255 and
+    256 where the row has them) with random bits after it), then dense,
+    sparse and ANDed random words. Where B is smaller than the edge rows,
+    B rows drawn at random from them and the random kinds."""
+    nb = 32 * C32
+
+    def spread(n, hi):  # n distinct set bits among the first hi
+        r = np.zeros(nb, dtype=bool)
+        r[rng.choice(hi, n, replace=False)] = True
+        return r
+
+    edge = [np.zeros(nb, dtype=bool), np.ones(nb, dtype=bool)]
+    for w in (0, C32 - 1):
+        edge.append(np.zeros(nb, dtype=bool))
+        edge[-1][32 * w + 31] = True
+    for T in Ts:
+        edge += [spread(n, nb) for n in (T - 1, T, T + 1) if n <= nb]
+        for w in (31, 32, 255, 256):
+            if w < C32 and T - 1 <= 32 * w:
+                r = spread(T - 1, 32 * w)
+                r[32 * w + rng.integers(32)] = True
+                r[32 * (w + 1):] = rng.random(nb - 32 * (w + 1)) < 0.3
+                edge.append(r)
+    edge = np.packbits(np.stack(edge).reshape(-1, C32, 32), axis=2,
+                       bitorder="little").view("<u4").reshape(-1, C32)
+
+    def rand(n):
+        x = rng.integers(0, 1 << 32, size=(n, C32), dtype=np.uint64)
+        x = x.astype(np.uint32)
+        third = n // 3
+        x[:third] &= rng.integers(0, 1 << 32, size=(third, C32),
+                                  dtype=np.uint64).astype(np.uint32)
+        x[third:2 * third] *= rng.random((third, C32)) < 0.02
+        return x
+
+    if B >= len(edge):
+        return np.concatenate([edge, rand(B - len(edge))])
+    pool = np.concatenate([edge, rand(3)])
+    return pool[rng.choice(len(pool), B, replace=False)]
+
+
+def check_k9_edges(dev) -> int:
+    """K9 against its plain version on the seeded edge batches (C32 x B in
+    K9_EDGE_C32 x EDGE_B, each at every T of K9_EDGE_T), bit for bit. ->
+    the largest max_abs_err."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(9)
+    err, checks, past, exact = 0, 0, 0, 0
+    for C32 in K9_EDGE_C32:
+        for B in EDGE_B:
+            x = torch.from_numpy(edge_bit_rows(rng, B, C32, K9_EDGE_T).view(
+                np.int32)).to(dev)
+            for T in K9_EDGE_T:
+                got = first_set_bits(x, T)
+                want = first_set_bits_plain(x, T)
+                torch.cuda.synchronize()
+                e = max_abs_err(got, want)
+                if e:
+                    log(f"[wide] first_set_bits edge batch B {B}, C32 {C32},"
+                        f" T {T}: max_abs_err {e}")
+                err = max(err, e)
+                checks += 1
+                past += int((want[0] > T).sum())
+                exact += int((want[0] == T).sum())
+            del x
+    log(f"[wide] first_set_bits on {checks} seeded edge batches (C32 "
+        f"{K9_EDGE_C32} x B {EDGE_B} x T {K9_EDGE_T}): {past} rows past T, "
+        f"{exact} of exactly T bits, max_abs_err {err} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return err
+
+
+def phase_first_set_bits(eng, weng, codes, parent):
     """K9 against first_set_bits_plain, bit for bit (tolerance 0): on one
     BATCH-read batch's K3 rows over the wide index (C32 = 143) at T_LIST,
-    1 and 3, and on seeded random rows with empty rows, all-ones rows,
-    rows whose only bit is bit 31 and rows of more than T bits; timed on
-    the K3 rows at T_LIST. -> the kernel's row."""
+    1 and 3, on seeded random rows with empty rows, all-ones rows, rows
+    whose only bit is bit 31 and rows of more than T bits, and on the
+    seeded edge batches (check_k9_edges); timed on the K3 rows at T_LIST,
+    with `parent` in turns with the parent's K9, and at 1 and 3. -> the
+    kernel's row."""
     dev = eng.device
     T = engine_mod.T_LIST
     chunk = np.full((BATCH, WIDTH), 4, dtype=np.uint8)
@@ -2089,11 +2260,19 @@ def phase_first_set_bits(eng, weng, codes):
                 f"words at T={t}: {int((got[0] > t).sum())} rows past T, "
                 f"{int((got[0] == 0).sum())} empty, up to {int(got[0].max())}"
                 f" colours a row, max_abs_err {e}")
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    ms, warm = kernel_times(lambda: first_set_bits(rows, T), "first_set_bits",
-                            flush)
-    del flush
+    err = max(err, check_k9_edges(dev))
     B = rows.shape[0]
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    ms, warm = in_turns(
+        "wide", "first_set_bits", f"the K3 rows (B {B}, C32 {C32}, T {T})",
+        (B * C32 * 4 + B * (T + 1) * 4,),
+        lambda: first_set_bits(rows, T), flush, parent)
+    for t in (1, 3):
+        in_turns("wide", "first_set_bits",
+                 f"the K3 rows (B {B}, C32 {C32}, T {t})",
+                 (B * C32 * 4 + B * (t + 1) * 4,),
+                 lambda t=t: first_set_bits(rows, t), flush, None)
+    del flush
     return dict(
         name="first_set_bits", source="fulgor_tpu_torch/csrc/lists.cu",
         replaces="fulgor_tpu/ops/intersect.py:220", max_abs_err=err, ms=ms,
@@ -2140,7 +2319,7 @@ def check_expansion(path, lists, G, tool):
     return lines
 
 
-def phase_wide(idx, eng, codes, reads, tmp, array, mirror):
+def phase_wide(idx, eng, codes, reads, tmp, array, mirror, parent):
     """Phase 9 on the WIDE_C-colour index: K9 on the card, then (a) the
     default strategy (runs fetch FI, K4 TU), checked read by read against
     the expansion of the 512-colour records and the host mirror; (b) the
@@ -2154,7 +2333,7 @@ def phase_wide(idx, eng, codes, reads, tmp, array, mirror):
     if not (weng.use_runs_fetch and not weng.use_lists
             and not weng.use_tu_runs):
         raise RuntimeError("the wide index does not take the runs fetch")
-    row = phase_first_set_bits(eng, weng, codes)
+    row = phase_first_set_bits(eng, weng, codes, parent)
     finish_row(row, "wide")
     G = idx.num_colors
     out = {t: os.path.join(tmp, f"wide_{t}.tsv") for t in ("fi", "tu")}
@@ -3410,7 +3589,8 @@ def phase_mesh(eng, cidx, wide, reads, codes, tmp, fi, tu, km, kc, dedup,
     passes_in_turns("mesh", "mesh_km", km_pass, parent, km_parent,
                     "mesh_km_parent")
     # the card's time in a profiled kmer-matches pass: K6 launched, no K13
-    # (with --parent also the parent's pass, K6 then K13 a cell a batch)
+    # (with --parent also the parent's pass: an older parent's K6 then K13
+    # a cell a batch)
     profiled_km("mesh_km", km_pass)
     if parent is not None:
         with using_library(parent):
@@ -3788,8 +3968,8 @@ def main():
     ap.add_argument("--parent", metavar="DIR",
                     help="a checkout of an earlier commit (git archive into "
                     "a directory .gitignore lists): its kernels are built "
-                    "and K2-K7, K10-K13 timed in turns with this tree's "
-                    "(phases 4, 10, 10b, 11), and TU, kmer-matches, the "
+                    "and K2-K13 timed in turns with this tree's "
+                    "(phases 4, 9, 10, 10b, 11), and TU, kmer-matches, the "
                     "mesh's TU and kmer-matches, cuckoo FI and staged FI "
                     "passes run in turns on both")
     args = ap.parse_args()
@@ -3836,7 +4016,8 @@ def main():
         mirror = phase_mirror(idx, codes, names, tmp, args.seed, fi, tu, km,
                               kc, dedup)
         array = phase_array(eng, ceng, codes, fi, tu, mirror)
-        wide = phase_wide(idx, eng, codes, reads, tmp, array, mirror)
+        wide = phase_wide(idx, eng, codes, reads, tmp, array, mirror,
+                          parent)
         rows.append(wide["row"])
         err2, probe_rows = phase_probe_kernels(eng, idx, codes)
         rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], err2)

@@ -3,8 +3,8 @@ fulgor_tpu, bit-exact (tolerance 0), on a mini and a cuckoo index of the
 same genomes (tests/test_ops.py's corpus):
 
 - pack_codes (kernel K8's plain version) against fulgor_tpu's
-  _device_pack_codes at L = 33, 64 and 160, and its bytes against the host
-  packer's at L % 32 == 0;
+  _device_pack_codes at L = 1, 15, 17, 31, 33, 64, 160 and 1,024, codes
+  up to 255, and its bytes against the host packer's at L % 32 == 0;
 - the unpacked steps query_window_csids, query_full_intersection and
   query_threshold_union, and the packed query_threshold_union_packed,
   against fulgor_tpu's on both backends;
@@ -78,12 +78,14 @@ def corpus(tmp_path_factory):
     return idx, codes, lens
 
 
-@pytest.mark.parametrize("Lc", [33, 64, 160])
+@pytest.mark.parametrize("Lc", [1, 15, 17, 31, 33, 64, 160, 1024])
 def test_pack_codes_matches_jax(Lc):
     rng = np.random.default_rng(Lc)
     codes = rng.integers(0, 4, size=(40, Lc)).astype(np.uint8)
     codes[rng.random(codes.shape) < 0.05] = 4
-    codes[3, 7], codes[4, 9] = 5, 255  # any code above 3 is bad
+    codes[3, 7 % Lc], codes[4, 9 % Lc] = 5, 255  # any code above 3 is bad
+    high = rng.random(codes.shape) < 0.05
+    codes[high] = rng.integers(5, 256, size=int(high.sum()))
     words, badw = pack_codes(torch.from_numpy(codes))
     jw, jb = _device_pack_codes(jnp.asarray(codes))
     assert words.dtype == badw.dtype == torch.int32

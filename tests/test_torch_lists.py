@@ -2,7 +2,9 @@
 fulgor_tpu, tolerance 0:
 
 - K9's plain version first_set_bits_plain against fulgor_tpu's
-  first_set_bits at C32 in {1, 5, 143} and T in {1, 3, 64}, on seeded
+  first_set_bits at C32 in {1, 5, 32, 33, 143} (around K9's chunk of 32
+  words) and T in {1, 3, 31, 32, 33, 64, 65} (around its group of 32
+  slots), on seeded
   random rows with empty rows, all-ones rows, rows whose only bit is bit
   31 and rows with more than T bits; the wrapper refuses other devices;
 - the steps query_fi_lists_packed and query_tu_lists_packed against
@@ -55,8 +57,8 @@ def edge_rows(C32: int, T: int, seed: int) -> np.ndarray:
     return rows
 
 
-@pytest.mark.parametrize("C32", [1, 5, 143])
-@pytest.mark.parametrize("T", [1, 3, 64])
+@pytest.mark.parametrize("C32", [1, 5, 32, 33, 143])
+@pytest.mark.parametrize("T", [1, 3, 31, 32, 33, 64, 65])
 def test_first_set_bits_plain_matches_reference(C32, T):
     rows = edge_rows(C32, T, seed=C32 * 100 + T)
     want_count, want_lists = JI.first_set_bits(jnp.asarray(rows), T)
