@@ -56,21 +56,40 @@ last line, which is printed only when every phase passed:
               instance against DIR's K6 then K13).
   5. e2e      on the card over every read, each path with the launch counts
               reset just before each timed run and checked just after:
-              FI pseudoalign_file (a warm-up, three timed runs to /dev/null,
-              cut from five to make room for phase 9, median and spread, a
+              FI pseudoalign_file (a warm-up, two timed runs to /dev/null,
+              cut from five to make room for phases 9, 5b and 5c, median
+              and spread, a
               profiled run for the card's busy share,
               a run to a file); TU pseudoalign_file at tau 0.8 (a warm-up,
-              three timed runs, a profiled run, an ascii and a binary run to
+              two timed runs, a profiled run, an ascii and a binary run to
               files, which must hold the same records); kmer_matches_file (a
-              warm-up, three timed runs, a run to a file);
+              warm-up, two timed runs, a run to a file);
               kmer_conservation_file and pseudoalign_file(deduplicate=True)
-              (each a warm-up, three timed runs, kc a profiled run, a run to
+              (each a warm-up, two timed runs, kc a profiled run, a run to
               a file, and a run to a file with the run budget forced to 2,
               which must be byte-identical to the first).
+  5b. meta-diff  phase 3's index saved, converted to the meta-diff kind on
+              the host (build/color_builder.convert with meta and diff),
+              checked by check_conversion, saved and loaded back (seconds,
+              and the colour store's bytes against the hybrid store's,
+              logged); FI and TU(0.8) over every read on a QueryEngine of
+              it, one pass each to a binary file, with phase 5's launch
+              checks: each record's colour ids, which name the permuted
+              colours, mapped through the filenames to phase 3's ids and
+              sorted, every record must equal phase 5's.
+  5c. multihost  two processes of `python -m fulgor_tpu_torch.cli
+              pseudoalign --num-procs 2 --proc-id p --coordinator
+              127.0.0.1:<free port> --device cuda:0 --verbose` on the saved
+              index and every read (FI, ascii), one gloo process group:
+              each must exit 0 within MULTIHOST_TIMEOUT_S having launched
+              phase 5's FI kernels (its --verbose launch counts), each
+              process's reads and seconds logged; process 0's merged file
+              must be id-ascending and hold phase 5's FI records, and no
+              fragment may be left.
   6. cuckoo   the same tools on a QueryEngine over the cuckoo index (FI: a
-              warm-up, three timed runs, with --parent four in turns with
-              DIR's kernels, a profiled run; TU(0.8): three
-              timed runs; then each tool once to a file): every file must
+              warm-up, a timed run, with --parent four in turns with
+              DIR's kernels, a profiled run; TU(0.8): a
+              timed run; then each tool once to a file): every file must
               equal the mini engine's (pseudoalign records sorted by read
               id, kmer-matches and kmer-conservation byte for byte).
   7. mirror   the exact host mirror (lookup_host_exact) in spawned workers,
@@ -98,12 +117,12 @@ last line, which is printed only when every phase passed:
               bit-31-only rows); timed at T_LIST (with --parent in turns
               with DIR's K9), 1 and 3.
               (a) The default strategy, runs fetch: FI (no K3) and TU(0.8)
-              (K4), each a warm-up, two timed runs (FI's key cache
-              emptied before each), a profiled run and a run to a file;
+              (K4), each a warm-up, a timed run (FI's key cache
+              emptied before it), a profiled run and a run to a file;
               every record equal to the expansion (g -> g, g + 512, ...) of
               the read's record in phase 5's files, on every read, and to
               the host mirror on phase 7's reads. FI by the dense path
-              (use_runs_fetch off: K3, its rows fetched), two timed runs
+              (use_runs_fetch off: K3, its rows fetched), a timed run
               and a run to a file equal to the runs fetch's, which decides
               whether the runs fetch earns its place where the dense matrix
               is allowed.
@@ -136,8 +155,8 @@ last line, which is printed only when every phase passed:
               end, FI and TU(0.8) under the staged probe
               (FULGOR_PROBE_BUDGET=2,8,4,16, a new engine) and the
               anchored one (pipeline.ANCHORED_PROBE on, restored after):
-              each a warm-up, timed passes (two staged ones in turns
-              with one-pass passes of the same tool, one anchored; with
+              each a warm-up, timed passes (a staged one in turns
+              with a one-pass pass of the same tool, one anchored; with
               --parent one staged FI pass also in turns with DIR's
               kernels) and a profiled pass to a file, which must hold
               phase 5's FI or phase 6's TU records.
@@ -193,8 +212,8 @@ last line, which is printed only when every phase passed:
               K3 or K12, the TU and kmer-matches redo batches as many
               (their redo runs the mesh's step, never K4 or K5), and no
               K13 (kmer-matches takes its hit words from K6); FI and
-              TU(0.8) on (2, 2) also a warm-up, two timed passes in
-              turns with one-device passes of the same tool, and a
+              TU(0.8) on (2, 2) also a warm-up, a timed pass in
+              turns with a one-device pass of the same tool, and a
               profiled pass; with --parent TU(0.8) and kmer-matches on
               (2, 2) four passes each in turns with DIR's kernels (DIR's
               own kmer-matches step, which launched K13); a profiled
@@ -240,6 +259,7 @@ last is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import ast
 import contextlib
 import ctypes as ct
 import dataclasses
@@ -261,6 +281,7 @@ import torch
 from fulgor_tpu_torch.build.builder import (
     build_index, build_kmer_dict, unitig_kmers,
 )
+from fulgor_tpu_torch.build.color_builder import check_conversion, convert
 from fulgor_tpu_torch.constants import INVALID_U32
 from fulgor_tpu_torch.core.kmers import unpack2
 from fulgor_tpu_torch.index import Index
@@ -331,8 +352,12 @@ REPS_KERNEL, REPS_PLAIN = 20, 3
 # none of them holds every launch, CUDA events time the calls instead.
 PROFILE_ATTEMPTS = 8
 PROFILE_GUARD_S, PROFILE_GUARD_MAX_S = 0.02, 0.32
-# FI's timed passes were cut from five to three to make room for phase 9
-E2E_PASSES, TU_PASSES, KM_PASSES, KC_PASSES, DEDUP_PASSES = 3, 3, 3, 3, 3
+# FI's timed passes were cut from five to three to make room for phase 9;
+# FI's, TU's, kmer-matches', kmer-conservation's and --deduplicate's to
+# two to make room for phases 5b and 5c (with CUCKOO_PASSES, WIDE_PASSES,
+# PROBE_PASSES, MESH_PASSES and E2E_PROFILES, at least as many seconds of
+# timed passes as the two phases take: PERF.md §4 and §6)
+E2E_PASSES, TU_PASSES, KM_PASSES, KC_PASSES, DEDUP_PASSES = 2, 2, 2, 2, 2
 TAU = 0.8
 # the reference's Salmonella index: 4,546 genomes (C32 = 143)
 WIDE_C, WIDE_READS = 4546, 4096
@@ -438,6 +463,11 @@ for _p, (_need, _forbid) in list(PATH_KERNELS.items()):
 PATH_KERNELS["v1"] = (("pack_codes", "window_prep") + V1K,
                       tuple(n for n in kernels.launches
                             if n not in ("pack_codes", "window_prep") + V1K))
+# phases 5b and 5c: the meta-diff index's FI and TU passes and each
+# process of the two-process FI take phase 5's paths
+PATH_KERNELS["meta_diff_fi"] = PATH_KERNELS["fi"]
+PATH_KERNELS["meta_diff_tu"] = PATH_KERNELS["tu"]
+MULTIHOST_PROCS, MULTIHOST_TIMEOUT_S = 2, 300
 MESH_EXACT = {
     "mesh_fi": ("compact_runs", "fi_and"),
     "mesh_tu": ("compact_runs", "runs_scores"),
@@ -459,15 +489,17 @@ MESH_REDO = ("mesh_tu", "mesh_km", "mesh_km_parent", "mesh_wide_tu")
 MESH_P, GRID = (1, 2, 4), (2, 2)
 # (FI's and TU's timed passes on the grid cut from three to two to make
 # room for K6's and K13's timing in turns and the profiled kmer-matches
-# passes)
-MESH_PASSES = 2
-CUCKOO_PASSES = 3
+# passes, then to one, each beside one one-device pass, with the cuckoo
+# engine's from three to one, for phases 5b and 5c)
+MESH_PASSES = 1
+CUCKOO_PASSES = 1
 # the run budget forced on kc and dedup for their overflow runs
 FORCED_RUNS = 2
 # phase 9: timed runs of each default path, and the list length forced on
 # the lists fetch so that most reads take the row fetch
-# (WIDE_PASSES cut from three to two with MESH_PASSES)
-WIDE_PASSES, FORCED_T = 2, 3
+# (WIDE_PASSES cut from three to two with MESH_PASSES, then to one for
+# phases 5b and 5c)
+WIDE_PASSES, FORCED_T = 1, 3
 # phase 10: K10's budgets (vb1, vb2, sc, RU), the second forcing tier B2
 # and its overflow past BH heavy reads, the first the end-to-end one; K11's
 # (RA, RU), None for anchor_budget/reprobe_budget; timed passes a path
@@ -475,8 +507,9 @@ STAGED_BUDGETS = ((2, 8, 4, 16), (1, 8, 4, 2))
 ANCHORED_BUDGETS = ((None, None), (4, 2))
 # (cut from three to two, the anchored ones to one: an anchored pass
 # takes 10-15 s on a slow host, and the whole run must stay inside its
-# clock)
-PROBE_PASSES, ANCHORED_PASSES = 2, 1
+# clock; the staged ones to one, each beside one one-pass pass, for
+# phases 5b and 5c)
+PROBE_PASSES, ANCHORED_PASSES = 1, 1
 # phase 12: the v1 lookup's candidate budgets (4, its default, is timed),
 # and its long reads cut from the unitig text
 V1_CANDIDATES = (4, 8)
@@ -525,10 +558,13 @@ K7_EDGE_BASES = 4_000_000
 K7_L2_BASES = 2_000_000
 # K4's edge thresholds (0.01: need 0 up to npos 99, every colour below C
 # passes), and the colours a K4/K5 edge batch leaves out of its last word;
-# the profiled TU and kmer-matches passes a tool may take
+# the profiled TU and kmer-matches passes a tool may take (cut from two
+# to one for phases 5b and 5c: in two whole runs on an H100 the second
+# pass dropped the launches the first had dropped, 4 of 10 K4 and 10 of
+# 16 K5)
 K4_EDGE_TAUS = (0.01, TAU, 1.0)
 EDGE_RAGGED = 5
-E2E_PROFILES = 2
+E2E_PROFILES = 1
 # csrc/union.cu kTable: K4 takes a read of at most this many runs by its
 # truth table, a longer one bit-sliced
 K4_TABLE_RUNS = 4
@@ -1884,6 +1920,148 @@ def phase_dedup(eng, reads, tmp):
                 rate=statistics.median(rates))
 
 
+def sorted_lines(qids, offs, cat) -> list:
+    """The records (qids, offs, cat) as ascii pseudoalignment lines, sorted
+    by read id."""
+    lines = native.format_psa_ascii(qids, cat, offs).splitlines()
+    return [lines[i] for i in np.argsort(qids, kind="stable")]
+
+
+def phase_meta_diff(idx, eng, reads, tmp, fi, tu):
+    """Phase 5b: phase 3's index saved, converted to meta-diff on the host,
+    checked (check_conversion), saved and loaded back; FI and TU(TAU) on
+    the card over every read on a QueryEngine of it, once each to a
+    binary file, each record's (permuted) colour ids mapped through the
+    filenames to phase 3's: the records must equal phase 5's. -> the saved
+    base index's path and phase 5's FI records sorted by read id (phase
+    5c compares with them too)."""
+    t0 = time.perf_counter()
+    base_path = os.path.join(tmp, "mini.tfur")
+    idx.save(base_path)
+    t1 = time.perf_counter()
+    conv = convert(idx, meta=True, diff=True)
+    t2 = time.perf_counter()
+    if not check_conversion(idx, conv):
+        raise RuntimeError("check_conversion failed on the meta-diff index")
+    t3 = time.perf_counter()
+    path = Index.path_for(os.path.join(tmp, "mini"), conv.kind)
+    conv.save(path)
+    midx = Index.load(path)
+    t4 = time.perf_counter()
+    hb, mb = idx.color_store.num_bytes(), midx.color_store.num_bytes()
+    pos = {fn: i for i, fn in enumerate(idx.filenames)}
+    to_base = np.array([pos[fn] for fn in midx.filenames], dtype=np.uint32)
+    log(f"[meta-diff] base index saved in {t1 - t0:.1f} s; converted "
+        f"(meta and diff) in {t2 - t1:.1f} s, check_conversion {t3 - t2:.1f}"
+        f" s, saved and loaded in {t4 - t3:.1f} s; colour store {mb} bytes "
+        f"against the hybrid store's {hb} ({mb / hb:.4f} x), "
+        f"{midx.color_store.num_color_sets} sets; {os.path.getsize(path)} "
+        f"file bytes against {os.path.getsize(base_path)}; "
+        f"{int((to_base != np.arange(len(to_base))).sum())} of "
+        f"{len(to_base)} colour ids permuted")
+    t5 = time.perf_counter()
+    meng = QueryEngine(midx, device=eng.device)
+    log(f"[meta-diff] engine made in {time.perf_counter() - t5:.1f} s")
+    rates = {}
+    fi_lines = records_by_qid(fi["out"])
+    for tool, kw, want in (
+            ("fi", {}, lambda: fi_lines),
+            ("tu", {"threshold": TAU}, lambda: sorted_lines(*tu["out"]))):
+        out = os.path.join(tmp, f"meta_diff_{tool}.bin")
+        r, _st, _l = timed_passes(
+            f"meta_diff_{tool}", lambda kw=kw, o=out: meng.pseudoalign_file(
+                reads, o, fmt="binary", **kw), 1)
+        rates[tool] = r[0]
+        t0 = time.perf_counter()
+        qids, offs, cat = read_binary_psa(out)
+        got = sorted_lines(qids, offs, native.permute_sort_segments(
+            cat, offs, to_base))
+        same = got == want()
+        log(f"[meta-diff] {tool.upper()}: {len(qids)} records, colour ids "
+            f"mapped through the filenames, equal to phase 5's on every "
+            f"read: {same} ({time.perf_counter() - t0:.1f} s)")
+        if not same:
+            raise RuntimeError(f"meta-diff {tool} records differ from phase "
+                               "5's")
+        os.remove(out)
+    del meng
+    torch.cuda.empty_cache()
+    return dict(path=base_path, rates=rates, seconds=t2 - t1,
+                fi_lines=fi_lines)
+
+
+def phase_multihost(base_path, reads, tmp, fi_lines):
+    """Phase 5c: MULTIHOST_PROCS processes of the port's CLI, `pseudoalign
+    --num-procs 2 --proc-id p --coordinator 127.0.0.1:<free port> --device
+    cuda:0 --verbose` over the saved index and every read (FI, ascii), on
+    one gloo process group: each must exit 0 having launched phase 5's FI
+    kernels, and process 0's merged file must be id-ascending and hold
+    phase 5's FI records (fi_lines, sorted by read id). -> each process's
+    reads, seconds and launches."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    coord = f"127.0.0.1:{s.getsockname()[1]}"
+    s.close()
+    out = os.path.join(tmp, "multihost.tsv")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "fulgor_tpu_torch.cli", "pseudoalign", "-i",
+         base_path, "-q", reads, "-o", out, "--num-procs",
+         str(MULTIHOST_PROCS), "--proc-id", str(p), "--coordinator", coord,
+         "--device", "cuda:0", "--verbose"], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for p in range(MULTIHOST_PROCS)]
+    try:
+        logs = [p.communicate(timeout=MULTIHOST_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    need, forbid = PATH_KERNELS["fi"]
+    per = []
+    for p, (proc, text) in enumerate(zip(procs, logs)):
+        for ln in text.strip().splitlines():
+            log(f"[multihost] process {p}: {ln}")
+        if proc.returncode != 0:
+            raise RuntimeError(f"multihost process {p} exited "
+                               f"{proc.returncode}")
+        reads_p = int(re.search(r"^mapped (\d+) reads$", text, re.M)[1])
+        secs = float(re.search(r"/ ([0-9.]+) sec /", text)[1])
+        launches = ast.literal_eval(re.search(
+            r"^kernel launches in this process (\{.*\})$", text, re.M)[1])
+        missing = [k for k in need if launches.get(k, 0) <= 0]
+        extra = [k for k in forbid if launches.get(k, 0) > 0]
+        if missing or extra:
+            raise RuntimeError(f"multihost process {p}: kernels not launched "
+                               f"{missing}, launched and not expected "
+                               f"{extra}")
+        per.append(dict(reads=reads_p, seconds=secs, launches=launches))
+    t1 = time.perf_counter()
+    left = sorted(f for f in os.listdir(tmp) if f.startswith("multihost."))
+    with open(out, "rb") as f:
+        got = f.read().splitlines()
+    ids = [int(ln[: ln.index(b"\t")]) for ln in got]
+    ascending = all(a < b for a, b in zip(ids, ids[1:]))
+    same = got == fi_lines
+    log(f"[multihost] {MULTIHOST_PROCS} processes in {wall:.1f} s wall "
+        f"(start-up, index load and engine included); reads and seconds "
+        f"{[(d['reads'], d['seconds']) for d in per]}; merged file "
+        f"{len(got)} records, id-ascending: {ascending}, equal to phase 5's "
+        f"FI records: {same}; files left {left} "
+        f"({time.perf_counter() - t1:.1f} s)")
+    if not (ascending and same and left == ["multihost.tsv"]
+            and sum(d["reads"] for d in per) == len(got)):
+        raise RuntimeError("the multihost FI output differs from phase 5's")
+    os.remove(out)
+    return dict(procs=per, wall=wall)
+
+
 def records_by_qid(path) -> list:
     """The lines of an ascii pseudoalignment file, sorted by read id."""
     with open(path, "rb") as f:
@@ -3082,9 +3260,9 @@ def check_k4k5(eng, wide_bits, hit, csid, edges):
 def e2e_in_turns(eng, reads, parent):
     """TU(TAU) and kmer-matches passes to /dev/null: with `parent`, one
     pass each in turns with the parent's kernels (parent, this, this,
-    parent); then a profiled pass of each on this tree's (a second where
-    the profiler dropped launches of K4 or K5): the card's busy time and
-    K4's or K5's share of it."""
+    parent); then a profiled pass of each on this tree's (up to
+    E2E_PROFILES, until one holds every launch of K4 or K5): the card's
+    busy time and K4's or K5's share of it."""
     tools = (("tu", "tu_mask", lambda: eng.pseudoalign_file(
         reads, os.devnull, threshold=TAU)),
         ("km", "km_scores", lambda: eng.kmer_matches_file(reads,
@@ -4011,6 +4189,12 @@ def main():
         km = phase_km(eng, reads, tmp)
         kc = phase_kc(eng, reads, tmp)
         dedup = phase_dedup(eng, reads, tmp)
+        t_new = time.perf_counter()
+        md = phase_meta_diff(idx, eng, reads, tmp, fi, tu)
+        t_md = time.perf_counter()
+        mh = phase_multihost(md["path"], reads, tmp, md.pop("fi_lines"))
+        log(f"[phases 5b-5c] meta-diff {t_md - t_new:.1f} s, multihost "
+            f"{time.perf_counter() - t_md:.1f} s")
         cuckoo = phase_cuckoo(ceng, reads, tmp, fi, tu, km, kc, dedup,
                               parent)
         mirror = phase_mirror(idx, codes, names, tmp, args.seed, fi, tu, km,
@@ -4041,7 +4225,10 @@ def main():
         f"on {card}: FI {fi['rate']:.1f}, TU({TAU}) {tu['rate']:.1f}, "
         f"kmer-matches {km['rate']:.1f}, kmer-conservation "
         f"{kc['rate']:.1f}, --deduplicate {dedup['rate']:.1f} reads/s "
-        f"(medians); cuckoo FI {cuckoo['rate']:.1f}, TU({TAU}) "
+        f"(medians); meta-diff index FI {md['rates']['fi']:.1f}, TU({TAU}) "
+        f"{md['rates']['tu']:.1f} reads/s (one pass each); "
+        f"{MULTIHOST_PROCS} processes FI in {mh['wall']:.1f} s wall "
+        f"(start-up included); cuckoo FI {cuckoo['rate']:.1f}, TU({TAU}) "
         f"{cuckoo['rate_tu']:.1f} reads/s (medians); array API "
         f"{ {k: round(v, 1) for k, v in array['rates'].items()} } reads/s "
         f"(one call each); {WIDE_C} colours: FI {wide['rates']['fi']:.1f} "

@@ -8,10 +8,13 @@ hand-written CUDA C++ kernels for Hopper (sm_90a) under csrc/:
 
   host  C++    ccdBG construction, parsing, ascii emit -> native/
   host  numpy  bitstream codecs, container, index      -> core/, index.py
+               meta/diff/meta-diff re-compression      -> build/color_builder.py
   device CUDA  window prep, dictionary probes, colour  -> ops/, csrc/
                stage (AND, TU, runs, first colours)
   engine       streaming query tools, array API        -> query/engine.py
-  CLI          build and the query tools               -> cli.py
+  scale-out    a grid of cards in one process; pseudo- -> parallel/
+               align over processes (gloo barriers)
+  CLI          build, color, the host and query tools  -> cli.py
 
 Index files are shared with fulgor_tpu: either package reads what the other
 writes. Entry points run on the card ("cuda") unless told otherwise.

@@ -12,7 +12,8 @@ The reference's 4-step builder maps to:
 
 check_index() reproduces the --check oracle (builder.hpp:221-277): every
 k-mer of every unitig must resolve to that unitig, and decoded color sets
-must match the construction's.
+must match the construction's; check_against() checks one index against
+another unitig by unitig (`check --against`).
 """
 
 from __future__ import annotations
@@ -225,6 +226,89 @@ def build_index(
         print(f"  dictionary + color encoding: {time.perf_counter() - t1:.1f} s")
     assert idx.num_kmers == g["num_kmers"]
     return idx
+
+
+def check_against(base: Index, target: Index, verbose: bool = False) -> bool:
+    """Unitig-level cross-index validation (reference tools/util.cpp:63-231):
+    every k-mer of every target unitig must resolve to ONE color set in each
+    index, and the two sets must match modulo the color permutation recovered
+    by sorting filenames. Makes no assumption that set ids align. Both
+    indexes are looked up on the host (Index.host_window_csids)."""
+    if base.num_colors != target.num_colors:
+        print("CHECK FAILED: number of colors mismatch")
+        return False
+    if base.num_color_sets != target.num_color_sets:
+        print("CHECK FAILED: number of color sets mismatch")
+        return False
+    if base.num_unitigs != target.num_unitigs:
+        print("CHECK FAILED: number of unitigs mismatch")
+        return False
+    if base.num_kmers != target.num_kmers:
+        print("CHECK FAILED: number of kmers mismatch")
+        return False
+    # color map via filename sort (util.cpp:90-106)
+    base_perm = np.argsort(np.array(base.filenames, dtype=object), kind="stable")
+    tgt_perm = np.argsort(np.array(target.filenames, dtype=object), kind="stable")
+    base_to_target = np.empty(base.num_colors, dtype=np.int64)
+    base_to_target[base_perm] = tgt_perm
+
+    codes_all = K.unpack2(target.unitig_seq, int(target.unitig_offs[-1]))
+    uids, inside = unitig_window_mask(target.unitig_offs, target.k, len(codes_all))
+    _th, tcs_all = target.host_window_csids(codes_all)
+    tgt_csid_kmer = tcs_all[inside]
+    expect_tgt = target.u2c_csid[uids.astype(np.int64)]
+    if not (tgt_csid_kmer == expect_tgt).all():
+        print("CHECK FAILED: target kmers do not resolve to their unitig's set")
+        return False
+    _bh, bcs_all = base.host_window_csids(codes_all)
+    base_csid_kmer = bcs_all[inside].astype(np.int64)
+    num_checked_kmers = int(inside.sum())
+    # base csid must be constant within each target unitig
+    first_of_uid = np.concatenate([[True], uids[1:] != uids[:-1]])
+    uid_first_base = base_csid_kmer[first_of_uid][
+        np.cumsum(first_of_uid.astype(np.int64)) - 1
+    ]
+    if not (base_csid_kmer == uid_first_base).all():
+        print("CHECK FAILED: a target unitig spans multiple base color sets")
+        return False
+    # per target set: compare contents vs the mapped base set (one pair per
+    # distinct target csid; unitig grouping guarantees coverage of all sets)
+    tcs = target.u2c_csid.astype(np.int64)
+    bcs = base_csid_kmer[first_of_uid]  # base csid per target unitig
+    tsids, first_uid = np.unique(tcs, return_index=True)
+    bsid_of_t = bcs[first_uid]
+    bcat, boffs = base.color_sets_decoded()
+    tcat, toffs = target.color_sets_decoded()
+    tsz = (toffs[1:] - toffs[:-1]).astype(np.int64)[tsids]
+    bsz = (boffs[1:] - boffs[:-1]).astype(np.int64)[bsid_of_t]
+    if not np.array_equal(tsz, bsz):
+        s = int(tsids[np.flatnonzero(tsz != bsz)[0]])
+        print(f"CHECK FAILED: color set {s} size mismatch vs base")
+        return False
+    # gather mapped base contents in target-set order, sort per segment
+    exp_offs = np.concatenate([[0], np.cumsum(bsz)]).astype(np.int64)
+    g = np.repeat(boffs[:-1][bsid_of_t], bsz) + (
+        np.arange(int(bsz.sum()), dtype=np.int64) - np.repeat(exp_offs[:-1], bsz)
+    )
+    mapped = base_to_target[bcat[g].astype(np.int64)]
+    seg = np.repeat(np.arange(len(tsids), dtype=np.int64), bsz)
+    mapped = mapped[np.lexsort((mapped, seg))]
+    tg = np.repeat(toffs[:-1][tsids], tsz) + (
+        np.arange(int(tsz.sum()), dtype=np.int64) - np.repeat(exp_offs[:-1], tsz)
+    )
+    tvals = tcat[tg].astype(np.int64)
+    tvals = tvals[np.lexsort((tvals, seg))]
+    bad = mapped != tvals
+    if bad.any():
+        s = int(tsids[seg[np.flatnonzero(bad)[0]]])
+        print(f"CHECK FAILED: color set {s} mismatch vs base")
+        return False
+    if verbose:
+        print(
+            f"checked {target.num_unitigs} unitigs, {num_checked_kmers} kmers, "
+            f"{target.num_color_sets} color sets against base"
+        )
+    return True
 
 
 def unitig_window_mask(unitig_offs: np.ndarray, k: int, total: int):

@@ -32,7 +32,9 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from . import INDEX_VERSION
+from .constants import EXT, KIND_FROM_EXT
 from .core import container
+from .core import kmers as K
 from .core.colorstores import STORE_CLASSES
 
 # color_rows' memo of decoded rows is reset when it would pass this size
@@ -112,6 +114,9 @@ class Index:
     def num_color_sets(self) -> int:
         return self.color_store.num_color_sets
 
+    def u2c(self, unitig_id: int) -> int:
+        return int(self.u2c_csid[unitig_id])
+
     # ------------------------------------------------ dictionary backend
 
     def minidict(self):
@@ -169,7 +174,6 @@ class Index:
 
             hit, csid = probe_windows_host(self.minidict(), codes)
             return hit, np.where(hit, csid, np.uint32(INVALID_U32))
-        from .core import kmers as K
         from .query.host_lookup import lookup_host
 
         km, valid = K.pack_kmers(np.asarray(codes, dtype=np.uint8), self.k)
@@ -187,6 +191,19 @@ class Index:
         if self._cs_cache is None:
             self._cs_cache = self.color_store.decode_all()
         return self._cs_cache
+
+    def color_set(self, cs_id: int) -> np.ndarray:
+        cat, offs = self.color_sets_decoded()
+        return cat[offs[cs_id] : offs[cs_id + 1]]
+
+    def unitig_codes(self, i: int) -> np.ndarray:
+        lo, hi = int(self.unitig_offs[i]), int(self.unitig_offs[i + 1])
+        w0, w1 = lo >> 5, (hi + 31) >> 5
+        codes = K.unpack2(self.unitig_seq[w0:w1], (w1 - w0) * 32)
+        return codes[lo - (w0 << 5) : hi - (w0 << 5)]
+
+    def unitig_seq_str(self, i: int) -> str:
+        return K.codes_to_seq(self.unitig_codes(i))
 
     def expected_kmers_per_unitig(self) -> float:
         """Occurrence-weighted expected unitig k-mer count at a random READ
@@ -361,6 +378,17 @@ class Index:
         assert meta["num_color_sets"] == idx.num_color_sets
         return idx
 
+    @staticmethod
+    def path_for(basename: str, kind: str) -> str:
+        return basename + EXT[kind]
+
+    @staticmethod
+    def kind_of(path: str) -> str:
+        for ext, kind in KIND_FROM_EXT.items():
+            if path.endswith(ext):
+                return kind
+        raise ValueError(f"unknown index extension: {path}")
+
     # ------------------------------------------------ stats
 
     def component_bytes(self) -> dict:
@@ -404,3 +432,78 @@ class Index:
         )
         print(f"color store [{self.kind}]:")
         _print_nested(self.color_store.stats(), indent=1)
+
+    # ------------------------------------------------ dump / load (text interchange)
+
+    def dump(self, basename: str):
+        """Write the 4-file text dump (format: reference README.md:295-387)."""
+        with open(basename + ".metadata.txt", "w") as f:
+            f.write(f"k={self.k}\n")
+            f.write(f"num_kmers={self.num_kmers}\n")
+            f.write(f"num_colors={self.num_colors}\n")
+            f.write(f"num_unitigs={self.num_unitigs}\n")
+            f.write(f"num_color_sets={self.num_color_sets}\n")
+        with open(basename + ".filenames.txt", "w") as f:
+            for fn in self.filenames:
+                f.write(fn + "\n")
+        codes_all = K.unpack2(self.unitig_seq, int(self.unitig_offs[-1]))
+        lut = np.frombuffer(b"ACGT", dtype=np.uint8)
+        with open(basename + ".unitigs.fa", "wb") as f:
+            for i in range(self.num_unitigs):
+                f.write(b"> color_set_id=%d\n" % self.u2c_csid[i])
+                seg = lut[codes_all[self.unitig_offs[i] : self.unitig_offs[i + 1]]]
+                f.write(seg.tobytes())
+                f.write(b"\n")
+        cat, offs = self.color_sets_decoded()
+        with open(basename + ".color_sets.txt", "w") as f:
+            for s in range(self.num_color_sets):
+                row = cat[offs[s] : offs[s + 1]]
+                f.write(f"size={len(row)} " + " ".join(map(str, row)) + "\n")
+
+    @classmethod
+    def from_dump(cls, basename: str, m: int = 20) -> "Index":
+        """An index from the dump files, no ccdBG build (reference
+        src/index.cpp:122-305), through build/builder.assemble_index."""
+        from .build.builder import assemble_index
+        from .native import lib as native
+
+        meta = {}
+        with open(basename + ".metadata.txt") as f:
+            for line in f:
+                key, val = line.strip().split("=")
+                meta[key] = int(val)
+        with open(basename + ".filenames.txt") as f:
+            filenames = [ln.rstrip("\n") for ln in f if ln.strip()]
+        codes_mat, lens, names = native.parse_reads(basename + ".unitigs.fa")
+        ucs = np.array([int(n.split("=")[1]) for n in names], dtype=np.uint32)
+        uoffs = np.concatenate([[0], np.cumsum(lens.astype(np.int64))])
+        ucodes = np.concatenate(
+            [codes_mat[i, : lens[i]] for i in range(len(lens))]
+        ) if len(lens) else np.empty(0, np.uint8)
+        sizes = []
+        cols = []
+        with open(basename + ".color_sets.txt") as f:
+            for ln in f:
+                parts = ln.split()
+                n = int(parts[0].split("=")[1])
+                if n != len(parts) - 1:
+                    raise ValueError(f"{basename}.color_sets.txt: a set of "
+                                     f"size={n} lists {len(parts) - 1}")
+                sizes.append(n)
+                cols.append(np.array(parts[1:], dtype=np.uint32))
+        cs_offs = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+        cs_colors = np.concatenate(cols).astype(np.uint32) if cols else np.empty(0, np.uint32)
+        idx = assemble_index(
+            k=meta["k"],
+            m=m,
+            num_colors=meta["num_colors"],
+            filenames=filenames,
+            unitig_codes=ucodes,
+            unitig_offs=uoffs,
+            unitig_cs=ucs,
+            cs_colors=cs_colors,
+            cs_offs=cs_offs,
+        )
+        if idx.num_kmers != meta["num_kmers"]:
+            raise ValueError("kmer count mismatch vs dump metadata")
+        return idx

@@ -1,1 +1,2 @@
-"""Query steps sharded over a (data, colour) grid of devices (mesh.py)."""
+"""Query steps sharded over a (data, colour) grid of devices (mesh.py),
+and pseudoalign sharded over processes (multihost.py)."""

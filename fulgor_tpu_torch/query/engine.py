@@ -1133,12 +1133,19 @@ class QueryEngine:
 
     # ---------------------------------------------------------------- streaming
 
-    def _stream(self, query_path: str, dispatch, consume, need_names=False):
+    def _stream(self, query_path: str, dispatch, consume, need_names=False,
+                shard=None):
         """Parse chunk -> dispatch(chunk) -> handle (<= 2 in flight) ->
         consume(qid0, n, lens, names, handle, chunk), names the chunk's
         read names when need_names, else None. Parsing runs on a prefetch
         thread (the native parser releases the GIL).
-        -> (num_reads_total, parse_sec)."""
+
+        shard=(proc_id, num_procs) (fulgor_tpu engine.py:941): every chunk
+        is parsed, only those with chunk index % num_procs == proc_id are
+        dispatched; qid0 stays the read's ordinal in the whole file, so
+        that the processes' fragments merge by id (parallel/multihost.py).
+        -> (num_reads_total, parse_sec), the total the whole file's even
+        under a shard."""
         import queue
         import threading
 
@@ -1147,16 +1154,18 @@ class QueryEngine:
         stream = ReadsStream(query_path, self.batch, row_len=MAX_STREAM_WIDTH)
         q: queue.Queue = queue.Queue(maxsize=2)
         parse_sec = [0.0]
+        pid, nprocs = (0, 1) if shard is None else shard
 
         def producer():
             try:
                 t = time.perf_counter()
                 base = 0
-                for codes, lens, names in stream:
+                for ci, (codes, lens, names) in enumerate(stream):
                     parse_sec[0] += time.perf_counter() - t
-                    # copy out of the stream's reused buffers
-                    q.put((codes.copy(), lens, names if need_names else None,
-                           base))
+                    if ci % nprocs == pid:
+                        # copy out of the stream's reused buffers
+                        q.put((codes.copy(), lens,
+                               names if need_names else None, base))
                     base += len(lens)
                     t = time.perf_counter()
                 parse_sec[0] += time.perf_counter() - t
@@ -1201,19 +1210,26 @@ class QueryEngine:
 
     def pseudoalign_file(self, query_path: str, out_path: str, threshold=None,
                          fmt: str = "ascii", verbose: bool = False,
-                         deduplicate: bool = False):
+                         deduplicate: bool = False, shard=None):
         """Pseudoalignment of a FASTA/FASTQ(.gz) file, by full intersection
         or, with threshold=tau in (0, 1], by threshold union: a colour is
         kept where at least floor(npos * tau) of the read's npos positive
         windows hold it. deduplicate: full intersection once per distinct
         list of the reads' colour-set ids, written in read order at the end
-        (not with threshold). -> stats dict (num_reads, num_mapped,
+        (not with threshold). shard=(proc_id, num_procs): this process's
+        chunks only (_stream); the redone reads then go to a side fragment
+        out_path + ".redo", so that both files are id-ascending
+        (parallel/multihost.py merges them). -> stats dict (num_reads, of
+        this process, num_reads_total, of the file, num_mapped,
         parse/query/redo/write seconds, num_redo, the redone read ids and
         num_redo_host, the redone reads the host mirror decided)."""
         if threshold is not None and not 0.0 < threshold <= 1.0:
             raise ValueError("threshold must be a float in (0.0, 1.0]")
         t0 = time.perf_counter()
         if deduplicate:
+            if shard is not None:
+                raise ValueError("deduplicate runs in one process (its "
+                                 "groups span the whole file): no shard")
             if threshold is not None:
                 raise ValueError("deduplicate takes full intersection only "
                                  "(no threshold)")
@@ -1271,9 +1287,21 @@ class QueryEngine:
         # Deferred redo: overflow and over-long reads wait here as (read id,
         # codes | None = re-parse) and are resolved redo_flush at a time. A
         # flush launches the device re-probe and the pool is written one
-        # flush later (or at the end), pools strictly in order.
+        # flush later (or at the end), pools strictly in order: into the
+        # output, or under a shard into the side fragment (created at its
+        # first write)
         deferred: list = []
         pending_redo: deque = deque()  # (ids, rows, device state | None)
+        redo_fmtr = None
+
+        def redo_sink():
+            nonlocal redo_fmtr
+            if shard is None:
+                return fmtr
+            if redo_fmtr is None:
+                redo_fmtr = AsyncWriter(
+                    make_formatter(fmt, out_path + ".redo", C))
+            return redo_fmtr
 
         def defer_reads(qid0, chunk, lens, js):
             for j in js:
@@ -1316,7 +1344,7 @@ class QueryEngine:
                     done = self._fi_lists_from_csids_many(done)
                 elif not tu_dense:
                     done = [self._tu_from_csids(c, threshold) for c in done]
-                fmtr.write_batch(ids, done)
+                redo_sink().write_batch(ids, done)
                 redo_ids.extend(ids)
             redo_sec += time.perf_counter() - tr
 
@@ -1488,16 +1516,22 @@ class QueryEngine:
             consume = consume_runs
         elif tu_runs:
             consume = consume_tu_runs
-        total, parse_sec = self._stream(query_path, dispatch, consume)
+        total, parse_sec = self._stream(query_path, dispatch, consume,
+                                        shard=shard)
         flush_deferred(final=True)
         fmtr.close()
+        num_mapped, write_sec = fmtr.mapped, fmtr.busy_sec
+        if redo_fmtr is not None:
+            redo_fmtr.close()
+            num_mapped += redo_fmtr.mapped
+            write_sec += redo_fmtr.busy_sec
         elapsed = time.perf_counter() - t0
         # per-stage busy times; the stages overlap (parse on a prefetch
         # thread, the card async, formatting on the writer thread)
         stats = dict(num_reads=num_reads, num_reads_total=total,
-                     num_mapped=fmtr.mapped, parse_sec=parse_sec,
+                     num_mapped=num_mapped, parse_sec=parse_sec,
                      query_sec=query_sec, host_sec=host_sec,
-                     write_sec=fmtr.busy_sec, num_redo=len(redo_ids),
+                     write_sec=write_sec, num_redo=len(redo_ids),
                      redo_ids=redo_ids, num_redo_host=num_redo_host,
                      redo_sec=redo_sec, num_run_ovf=num_run_ovf,
                      elapsed=elapsed)
@@ -1827,3 +1861,9 @@ class QueryEngine:
               f"redo {stats['redo_sec']:.3f}s ({stats['num_redo']} reads, "
               f"{stats['num_redo_host']} on the host) "
               f"write {stats['write_sec']:.3f}s")
+        # the card's kernels this process launched so far (none on the CPU)
+        from ..ops import kernels
+
+        launched = {k: v for k, v in kernels.launches.items() if v}
+        if launched:
+            print(f"kernel launches in this process {launched}")
