@@ -45,7 +45,14 @@ last line, which is printed only when every phase passed:
               torch.profiler, with L2 flushed before each launch and warm;
               plain versions: CUDA events) and bounds; then K4 and K5 on
               4,096 of the batch's reads against a seeded random dense
-              matrix of 4,546 colours (the reference's Salmonella width);
+              matrix of 4,546 colours (the reference's Salmonella width),
+              and on the same reads at 65,536 colours (C32 = 2,048,
+              fulgor_tpu's huge-colour demo; random words, pad bits too):
+              K3, K4 at tau 0.8 and 1.0 (equal to K3 at 1.0) and K5 at
+              65,536 and 65,519 colours, K9 at T 1 and 64 on K3's rows,
+              K4's rows and seeded edge rows, all bit for bit, each timed
+              cold L2 and warm beside its byte bound (K9 on K4's rows at
+              T 64), its plain version timed once on the checked call;
               query_runs_tu_packed against its plain composition. K7 is
               also timed against a table of the first 2 Mbp of the text's
               k-mers, which L2 holds, on reads cut from that text; with
@@ -60,14 +67,16 @@ last line, which is printed only when every phase passed:
               cut from five to make room for phases 9, 5b and 5c, median
               and spread, a
               profiled run for the card's busy share,
-              a run to a file); TU pseudoalign_file at tau 0.8 (a warm-up,
-              two timed runs, a profiled run, an ascii and a binary run to
-              files, which must hold the same records); kmer_matches_file (a
-              warm-up, two timed runs, a run to a file);
-              kmer_conservation_file and pseudoalign_file(deduplicate=True)
-              (each a warm-up, two timed runs, kc a profiled run, a run to
-              a file, and a run to a file with the run budget forced to 2,
-              which must be byte-identical to the first).
+              a run to a file); TU pseudoalign_file at tau 0.8 (a timed
+              run, a profiled run, an ascii and a binary run to files,
+              which must hold the same records); kmer_matches_file (a
+              timed run, a run to a file); kmer_conservation_file and
+              pseudoalign_file(deduplicate=True) (each a timed run, kc a
+              profiled run, a run to a file, and a run to a file with the
+              run budget forced to 2, which must be byte-identical to the
+              first). After FI the engine is warm: the other tools' passes
+              take no warm-up (cut, with their second timed runs, to make
+              room for phases 9b and 4's 65,536 colours).
   5b. meta-diff  phase 3's index saved, converted to the meta-diff kind on
               the host (build/color_builder.convert with meta and diff),
               checked by check_conversion, saved and loaded back (seconds,
@@ -117,8 +126,8 @@ last line, which is printed only when every phase passed:
               bit-31-only rows); timed at T_LIST (with --parent in turns
               with DIR's K9), 1 and 3.
               (a) The default strategy, runs fetch: FI (no K3) and TU(0.8)
-              (K4), each a warm-up, a timed run (FI's key cache
-              emptied before it), a profiled run and a run to a file;
+              (K4), each a timed run (FI's key cache emptied before each
+              run), a profiled run and a run to a file;
               every record equal to the expansion (g -> g, g + 512, ...) of
               the read's record in phase 5's files, on every read, and to
               the host mirror on phase 7's reads. FI by the dense path
@@ -132,6 +141,20 @@ last line, which is printed only when every phase passed:
               (c) dense_max_bytes=0: FI, TU(0.8) (K6 runs, no K4) and
               --deduplicate with the dense matrix forbidden, each file equal
               to (a)'s; the card's peak memory logged.
+  9b. huge    fulgor_tpu_torch.demo150k's own functions (imported, not
+              copied) at 8,192 genomes (C32 = 256) and 4,096 reads in the
+              temporary directory: its corpus, index and reads made, then
+              (a) dense_max_bytes=0: FI by the runs fetch and TU by runs,
+              the dense matrix never made on the host or the card; (b) the
+              default strategy (the fetch it takes logged); (c) the
+              meta-diff conversion in regime (a), where the host holds it.
+              FI and TU(0.8) once each on engines made under
+              FULGOR_SELFCHECK=1 (every read checked against the exact
+              host mirror; (c) every 64th), each pass's launches reset
+              just before it and checked just after against its path's
+              kernels ((a) and (c): K1, K2 and K6, no K3, K4 or K9; (b) by
+              its fetch); (b)'s and (c)'s records (c's colour ids mapped
+              through the filenames) equal (a)'s read for read.
  10. probes   the opt-in probes. On phase 4's batch, bit for bit against
               the plain versions: K2's stage1 mode at vb 1 and 2 and its
               want_entry mode; K10 staged_probe at (2, 8, 4, 16) and
@@ -155,11 +178,11 @@ last line, which is printed only when every phase passed:
               end, FI and TU(0.8) under the staged probe
               (FULGOR_PROBE_BUDGET=2,8,4,16, a new engine) and the
               anchored one (pipeline.ANCHORED_PROBE on, restored after):
-              each a warm-up, timed passes (a staged one in turns
-              with a one-pass pass of the same tool, one anchored; with
-              --parent one staged FI pass also in turns with DIR's
-              kernels) and a profiled pass to a file, which must hold
-              phase 5's FI or phase 6's TU records.
+              the staged ones each a warm-up and a timed pass in turns
+              with a one-pass pass of the same tool (with --parent one
+              staged FI pass also in turns with DIR's kernels); every one
+              a profiled pass to a file, which must hold phase 5's FI or
+              phase 6's TU records (the anchored rate is that pass's).
  10b. k2-k5  K2, K3, K4 and K5 as redesigned for the card, bit for bit
               against their plain versions: K2 in its three modes at the
               engine's two budgets and at (0, 2) and (20, 4) (no verify;
@@ -248,7 +271,10 @@ last line, which is printed only when every phase passed:
               every card launching K1, K2, K6 and K3 in a profiled FI pass,
               FI timed in turns with one card; then QueryEngine(idx) with
               no device named (the default mesh over every card), FI and
-              TU(0.8) to files equal to phase 5's. `--cards-only` runs
+              TU(0.8) to files equal to phase 5's; then phase 5c's two
+              processes of the CLI with no --device, each on a card of its
+              own (one card a process where processes share a host), the
+              merged file phase 5's FI records. `--cards-only` runs
               phases 1-3, phase 5's FI, TU and kmer-matches on the first
               card, and this phase.
 
@@ -357,10 +383,24 @@ PROFILE_GUARD_S, PROFILE_GUARD_MAX_S = 0.02, 0.32
 # two to make room for phases 5b and 5c (with CUCKOO_PASSES, WIDE_PASSES,
 # PROBE_PASSES, MESH_PASSES and E2E_PROFILES, at least as many seconds of
 # timed passes as the two phases take: PERF.md §4 and §6)
-E2E_PASSES, TU_PASSES, KM_PASSES, KC_PASSES, DEDUP_PASSES = 2, 2, 2, 2, 2
+# TU's, kmer-matches', kmer-conservation's and --deduplicate's to one, and
+# their warm-ups and phase 9's (a) warm-ups taken out, to make room for
+# phase 9b and phase 4's 65,536 colours (the engine is warm from FI's)
+E2E_PASSES, TU_PASSES, KM_PASSES, KC_PASSES, DEDUP_PASSES = 2, 1, 1, 1, 1
 TAU = 0.8
 # the reference's Salmonella index: 4,546 genomes (C32 = 143)
 WIDE_C, WIDE_READS = 4546, 4096
+# phase 9b: fulgor_tpu_torch.demo150k cut to these genomes and reads (its
+# regime (b) takes the lists fetch from about 8,192 genomes on, where the
+# index's ekpu falls under 8, as at 65,536)
+HUGE_GENOMES, HUGE_READS = 8192, 4096
+# the self-check's period in its regime (c), whose records are held against
+# regime (a)'s read for read (the host mirror takes some 3-4 ms a read)
+HUGE_SELFCHECK_C = 64
+# fulgor_tpu's huge-colour demo (scripts/demo150k.py): 65,536 genomes, C32
+# = 2,048; the ragged width K4 and K5 also take there, and K9's list
+# lengths
+HUGE_C, HUGE_RAGGED, HUGE_T = 65536, 17, (1, 64)
 # the kernels each path must launch, and those it must not (no path of
 # the 512-colour engines takes the lists fetch, K9)
 MINI, CUCKOO = ("window_prep", "minidict2_probe"), ("cuckoo_lookup",)
@@ -505,11 +545,12 @@ WIDE_PASSES, FORCED_T = 1, 3
 # (RA, RU), None for anchor_budget/reprobe_budget; timed passes a path
 STAGED_BUDGETS = ((2, 8, 4, 16), (1, 8, 4, 2))
 ANCHORED_BUDGETS = ((None, None), (4, 2))
-# (cut from three to two, the anchored ones to one: an anchored pass
-# takes 10-15 s on a slow host, and the whole run must stay inside its
-# clock; the staged ones to one, each beside one one-pass pass, for
-# phases 5b and 5c)
-PROBE_PASSES, ANCHORED_PASSES = 1, 1
+# (cut from three to two: the whole run must stay inside its clock; to
+# one, each beside one one-pass pass, for phases 5b and 5c). The anchored
+# probe has no timed pass (an anchored pass takes 10-15 s on a slow host;
+# cut for phase 9b and phase 4's 65,536 colours): its rate is that of its
+# profiled pass to a file, the pass whose records are checked
+PROBE_PASSES = 1
 # phase 12: the v1 lookup's candidate budgets (4, its default, is timed),
 # and its long reads cut from the unitig text
 V1_CANDIDATES = (4, 8)
@@ -1151,9 +1192,9 @@ def phase_kernels(idx, eng, ceng, codes, parent):
         f"{float(nr[long].float().mean()) if long.any() else 0:.2f} runs "
         f"each, {int(nr[long].sum())} of the batch's {runs} runs")
     del flush
-    errs_wide = phase_wide_c(eng, hit, csid)
-    rows[-2]["max_abs_err"] = max(rows[-2]["max_abs_err"], errs_wide[0])
-    rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"], errs_wide[1])
+    huge_errs = phase_wide_c(eng, hit, csid)
+    for r in rows:
+        r["max_abs_err"] = max(r["max_abs_err"], huge_errs.get(r["name"], 0))
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     rows.append(phase_runs(eng, hit, csid, flush, parent))
     rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"],
@@ -1164,7 +1205,7 @@ def phase_kernels(idx, eng, ceng, codes, parent):
 
     for r in rows:
         finish_row(r, "kernels")
-    return rows
+    return rows, huge_errs
 
 
 def k2_bytes(tabs, prep, kw, vb, out_bytes=6, skew=True):
@@ -1616,16 +1657,11 @@ def count_runs(hit, csid) -> int:
     return int(runs_per_read(hit, csid).sum())
 
 
-def phase_wide_c(eng, hit, csid):
-    """K4 (tau 0.8 and 1.0) and K5 against their plain versions on
-    WIDE_READS of the batch's reads and a seeded random dense matrix of
-    WIDE_C colours: several colour tiles a block and a ragged last word
-    (random pad bits included, which K4 must not pass on).
-    -> (K4 max_abs_err, K5 max_abs_err)."""
-    dev = eng.device
-    S = eng.bits.shape[0]
-    C32 = (WIDE_C + 31) // 32
-    g = torch.Generator(device=dev).manual_seed(WIDE_C)
+def wide_dense(S, C32, dev, seed):
+    """A seeded random (S, C32) dense matrix: random words (their pad bits
+    too), a third of the rows sparser, the first eighth every colour (core
+    rows)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
 
     def rnd(n):
         return torch.randint(-(1 << 31), 1 << 31, (n, C32), dtype=torch.int32,
@@ -1635,29 +1671,142 @@ def phase_wide_c(eng, hit, csid):
     lo, hi = S // 3, 2 * S // 3
     dense[lo:hi] &= rnd(hi - lo) & rnd(hi - lo)  # sparser rows
     dense[: S // 8] = -1  # core rows hold every colour
+    return dense
+
+
+def plain_ms(fn):
+    """fn() once, timed with CUDA events. -> (its result, ms)."""
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    out = fn()
+    e.record()
+    e.synchronize()
+    return out, s.elapsed_time(e)
+
+
+def phase_wide_c(eng, hit, csid):
+    """K4 (tau 0.8 and 1.0) and K5 against their plain versions on
+    WIDE_READS of the batch's reads and a seeded random dense matrix of
+    WIDE_C colours: several colour tiles a block and a ragged last word
+    (random pad bits included, which K4 must not pass on). Then at HUGE_C
+    colours (C32 = 2,048, fulgor_tpu's scripts/demo150k.py) on the same
+    reads and a seeded random dense matrix of that width: K4 (tau 0.8 and
+    1.0) and K5 at HUGE_C and at the ragged HUGE_C - HUGE_RAGGED, K3, and
+    K9 at T 1 and T_LIST on K3's rows, K4's rows and seeded edge rows, all
+    bit for bit; each timed cold L2 and warm beside its byte bound, its
+    plain version timed once on the checked call. -> {kernel name: largest
+    max_abs_err}."""
+    dev = eng.device
+    S = eng.bits.shape[0]
     h = hit[:WIDE_READS].contiguous()
     c = csid[:WIDE_READS].contiguous()
-    Wk = h.shape[1]
-    err4 = 0
+    B, Wk = h.shape
+    errs = dict.fromkeys(("fi_and", "tu_mask", "km_scores",
+                          "first_set_bits"), 0)
+    dense = wide_dense(S, (WIDE_C + 31) // 32, dev, WIDE_C)
     for tau in (TAU, 1.0):
         tab = eng._minscore_tab(tau, Wk)
         got = tu_mask(dense, h, c, tab, WIDE_C)
         want = tu_mask_plain(dense, h, c, tab, WIDE_C)
         torch.cuda.synchronize()
-        err4 = max(err4, max_abs_err((got,), (want,)))
+        errs["tu_mask"] = max(errs["tu_mask"], max_abs_err((got,), (want,)))
         log(f"[kernels] wide C: tu_mask at tau {tau}, {WIDE_READS} reads x "
             f"{WIDE_C} colours: {int(got.ne(0).any(dim=1).sum())} reads map, "
-            f"max_abs_err {err4}")
+            f"max_abs_err {errs['tu_mask']}")
     got = km_scores(dense, h, c, WIDE_C)
     want = km_scores_plain(dense, h, c, WIDE_C)
     torch.cuda.synchronize()
-    err5 = max_abs_err(got, want)
+    errs["km_scores"] = max_abs_err(got, want)
     log(f"[kernels] wide C: km_scores, {WIDE_READS} reads x {WIDE_C} "
-        f"colours: max score {int(got[1].max())}, max_abs_err {err5}")
-    if err4 or err5:
-        raise RuntimeError("tu_mask or km_scores disagrees with its plain "
-                           f"version at {WIDE_C} colours")
-    return err4, err5
+        f"colours: max score {int(got[1].max())}, max_abs_err "
+        f"{errs['km_scores']}")
+    del dense, got, want
+
+    # HUGE_C: C32 = 2,048, every word of a row past K9's groups of chunks
+    C32 = HUGE_C // 32
+    dense = wide_dense(S, C32, dev, HUGE_C)
+    t0 = time.perf_counter()
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    runs = count_runs(h, c)
+    distinct = torch.unique(c[h]).numel()
+    rows = []
+
+    def row(name, fn, plain, err, nbytes, ops):
+        ms, warm = kernel_times(fn, name, flush)
+        rows.append(dict(name=f"{name} (C = {HUGE_C})", ms=ms, warm_ms=warm,
+                         plain_ms=plain, max_abs_err=err, bytes=nbytes,
+                         ops=ops))
+        errs[name] = max(errs[name], err)
+
+    k3 = fi_and(dense, h, c)
+    want, pm = plain_ms(lambda: fi_and_plain(dense, h, c))
+    e3 = max_abs_err((k3,), (want,))
+    log(f"[kernels] huge C: fi_and, {B} reads x {HUGE_C} colours: "
+        f"{int(k3.ne(0).any(dim=1).sum())} reads map, {distinct} distinct "
+        f"colour sets, max_abs_err {e3}")
+    row("fi_and", lambda: fi_and(dense, h, c), pm, e3,
+        k3_bytes(h, c, C32), B * Wk * C32)
+    masks = {}
+    for C in (HUGE_C, HUGE_C - HUGE_RAGGED):
+        e4 = []
+        for tau in (TAU, 1.0):
+            tab = eng._minscore_tab(tau, Wk)
+            got = tu_mask(dense, h, c, tab, C)
+            want, pm4 = plain_ms(lambda: tu_mask_plain(dense, h, c, tab, C))
+            e4.append(max_abs_err((got,), (want,)))
+            masks[(C, tau)] = got
+        if not torch.equal(masks[(HUGE_C, 1.0)], k3):
+            raise RuntimeError("tu_mask at tau 1.0 differs from fi_and at "
+                               f"{HUGE_C} colours")
+        got = km_scores(dense, h, c, C)
+        want, pm5 = plain_ms(lambda: km_scores_plain(dense, h, c, C))
+        e5 = max_abs_err(got, want)
+        log(f"[kernels] huge C: tu_mask at tau {TAU} and 1.0 and km_scores, "
+            f"{B} reads x {C} colours: "
+            f"{int(masks[(C, TAU)].ne(0).any(dim=1).sum())} reads map at "
+            f"tau {TAU}, max score {int(got[1].max())}, max_abs_err {e4} and "
+            f"{e5}")
+        del got, want
+        if C == HUGE_C:
+            tab = eng._minscore_tab(TAU, Wk)
+            row("tu_mask", lambda: tu_mask(dense, h, c, tab, C), pm4,
+                max(e4), B * Wk * 5 + distinct * C32 * 4 + (Wk + 1) * 4
+                + B * C32 * 4, runs * C32 * 32 + B * C32 * 32)
+            row("km_scores", lambda: km_scores(dense, h, c, C), pm5, e5,
+                k5_bytes(h, c, C32, C), runs * C)
+            torch.cuda.empty_cache()
+        else:
+            errs["tu_mask"] = max(errs["tu_mask"], *e4)
+            errs["km_scores"] = max(errs["km_scores"], e5)
+    log(f"[kernels] tu_mask at tau 1.0 equals fi_and at {HUGE_C} colours")
+    edge = torch.from_numpy(edge_bit_rows(
+        np.random.default_rng(HUGE_C), B, C32, HUGE_T).view(np.int32)).to(dev)
+    T = engine_mod.T_LIST
+    for name, x in (("K3 rows", k3), ("K4 rows", masks[(HUGE_C, TAU)]),
+                    ("edge rows", edge)):
+        for t in HUGE_T:
+            got = first_set_bits(x, t)
+            want, pm9 = plain_ms(lambda: first_set_bits_plain(x, t))
+            e9 = max_abs_err(got, want)
+            log(f"[kernels] huge C: first_set_bits on {B} {name} x {C32} "
+                f"words at T={t}: {int((got[0] > t).sum())} rows past T, "
+                f"{int((got[0] == 0).sum())} empty, up to "
+                f"{int(got[0].max())} colours a row, max_abs_err {e9}")
+            if name == "K4 rows" and t == T:
+                row("first_set_bits", lambda: first_set_bits(x, T), pm9, e9,
+                    B * C32 * 4 + B * (T + 1) * 4, B * C32 * 12 + B * T * 3)
+            errs["first_set_bits"] = max(errs["first_set_bits"], e9)
+    del flush, dense, masks, edge, k3
+    torch.cuda.empty_cache()
+    for r in rows:
+        finish_row(r, "kernels")
+    log(f"[kernels] huge C: {HUGE_C} colours checked and timed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if any(errs.values()):
+        raise RuntimeError(f"a kernel disagrees with its plain version at "
+                           f"{WIDE_C} or {HUGE_C} colours: {errs}")
+    return errs
 
 
 def kernel_pattern(name):
@@ -1817,7 +1966,6 @@ def phase_tu(eng, reads, tmp):
     def fn(out=os.devnull, fmt="ascii"):
         return eng.pseudoalign_file(reads, out, threshold=TAU, fmt=fmt)
 
-    fn()  # warm-up
     rates, _st, launches = timed_passes("tu", fn, TU_PASSES)
     profiled_pass("tu", fn)
     out_a = os.path.join(tmp, "tu.tsv")
@@ -1846,7 +1994,6 @@ def phase_km(eng, reads, tmp):
     def fn(out=os.devnull):
         return eng.kmer_matches_file(reads, out)
 
-    fn()  # warm-up
     rates, _st, launches = timed_passes("km", fn, KM_PASSES)
     out = os.path.join(tmp, "km.tsv")
     st = fn(out)
@@ -1877,7 +2024,6 @@ def phase_kc(eng, reads, tmp):
 
     log(f"[kc] index ekpu {eng._ekpu:.2f}: run budget "
         f"{engine_mod._runs_budget(WIDTH, eng._ekpu, K)} at W={WIDTH}")
-    fn()  # warm-up
     rates, _st, launches = timed_passes("kc", fn, KC_PASSES)
     profiled_pass("kc", fn)
     out = os.path.join(tmp, "kc.tsv")
@@ -1903,7 +2049,6 @@ def phase_dedup(eng, reads, tmp):
 
     log(f"[dedup] run budget "
         f"{2 * engine_mod._runs_budget(WIDTH, eng._ekpu, K)} at W={WIDTH}")
-    fn()  # warm-up
     rates, _st, launches = timed_passes("dedup", fn, DEDUP_PASSES)
     out = os.path.join(tmp, "dedup.tsv")
     st = fn(out)
@@ -1990,14 +2135,16 @@ def phase_meta_diff(idx, eng, reads, tmp, fi, tu):
                 fi_lines=fi_lines)
 
 
-def phase_multihost(base_path, reads, tmp, fi_lines):
+def phase_multihost(base_path, reads, tmp, fi_lines, device="cuda:0",
+                    tag="multihost"):
     """Phase 5c: MULTIHOST_PROCS processes of the port's CLI, `pseudoalign
     --num-procs 2 --proc-id p --coordinator 127.0.0.1:<free port> --device
     cuda:0 --verbose` over the saved index and every read (FI, ascii), on
     one gloo process group: each must exit 0 having launched phase 5's FI
     kernels, and process 0's merged file must be id-ascending and hold
-    phase 5's FI records (fi_lines, sorted by read id). -> each process's
-    reads, seconds and launches."""
+    phase 5's FI records (fi_lines, sorted by read id). device None: no
+    --device (phase 13, where each process takes a card of its own). ->
+    each process's reads, seconds, launches and card."""
     import socket
 
     s = socket.socket()
@@ -2012,7 +2159,8 @@ def phase_multihost(base_path, reads, tmp, fi_lines):
         [sys.executable, "-m", "fulgor_tpu_torch.cli", "pseudoalign", "-i",
          base_path, "-q", reads, "-o", out, "--num-procs",
          str(MULTIHOST_PROCS), "--proc-id", str(p), "--coordinator", coord,
-         "--device", "cuda:0", "--verbose"], cwd=root, env=env,
+         "--verbose"] + (["--device", device] if device else []),
+        cwd=root, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for p in range(MULTIHOST_PROCS)]
     try:
@@ -2024,10 +2172,11 @@ def phase_multihost(base_path, reads, tmp, fi_lines):
                 p.wait()
     wall = time.perf_counter() - t0
     need, forbid = PATH_KERNELS["fi"]
+    for p, text in enumerate(logs):
+        for ln in text.strip().splitlines():
+            log(f"[{tag}] process {p}: {ln}")
     per = []
     for p, (proc, text) in enumerate(zip(procs, logs)):
-        for ln in text.strip().splitlines():
-            log(f"[multihost] process {p}: {ln}")
         if proc.returncode != 0:
             raise RuntimeError(f"multihost process {p} exited "
                                f"{proc.returncode}")
@@ -2041,7 +2190,9 @@ def phase_multihost(base_path, reads, tmp, fi_lines):
             raise RuntimeError(f"multihost process {p}: kernels not launched "
                                f"{missing}, launched and not expected "
                                f"{extra}")
-        per.append(dict(reads=reads_p, seconds=secs, launches=launches))
+        per.append(dict(reads=reads_p, seconds=secs, launches=launches,
+                        card=re.search(rf"^process {p} runs on (\S+)", text,
+                                       re.M)[1]))
     t1 = time.perf_counter()
     left = sorted(f for f in os.listdir(tmp) if f.startswith("multihost."))
     with open(out, "rb") as f:
@@ -2049,9 +2200,10 @@ def phase_multihost(base_path, reads, tmp, fi_lines):
     ids = [int(ln[: ln.index(b"\t")]) for ln in got]
     ascending = all(a < b for a, b in zip(ids, ids[1:]))
     same = got == fi_lines
-    log(f"[multihost] {MULTIHOST_PROCS} processes in {wall:.1f} s wall "
-        f"(start-up, index load and engine included); reads and seconds "
-        f"{[(d['reads'], d['seconds']) for d in per]}; merged file "
+    log(f"[{tag}] {MULTIHOST_PROCS} processes in {wall:.1f} s wall "
+        f"(start-up, index load and engine included); reads, seconds and "
+        f"card {[(d['reads'], d['seconds'], d['card']) for d in per]}; "
+        f"merged file "
         f"{len(got)} records, id-ascending: {ascending}, equal to phase 5's "
         f"FI records: {same}; files left {left} "
         f"({time.perf_counter() - t1:.1f} s)")
@@ -2462,6 +2614,60 @@ def phase_first_set_bits(eng, weng, codes, parent):
         ops=B * C32 * 12 + B * T * 3)
 
 
+def huge_paths(fetch) -> dict:
+    """The PATH_KERNELS entry of each pass of phase 9b: regimes (a) and
+    (c) on K6 alone (runs fetch FI, runs TU: no K3, K4 or K9); (b) by the
+    fetch its engine took."""
+    b = {"lists": ("wide_lists_fi", "wide_lists_tu"),
+         "runs": ("wide_fi", "wide_tu"),
+         "dense": ("wide_dense_fi", "wide_tu")}[fetch]
+    return {("a", "fi"): "wide_nd_fi", ("a", "tu"): "wide_nd_tu",
+            ("b", "fi"): b[0], ("b", "tu"): b[1],
+            ("c", "fi"): "wide_nd_fi", ("c", "tu"): "wide_nd_tu"}
+
+
+def phase_huge(tmp, device):
+    """Phase 9b: fulgor_tpu_torch.demo150k's own functions at HUGE_GENOMES
+    genomes and HUGE_READS reads in a temporary directory: the corpus, its
+    index and reads made, then regimes (a) no dense matrix, (b) the default
+    strategy and (c) the meta-diff index (where the host holds the
+    conversion), FI and TU(TAU) each, one pass each with the self-check on
+    every read ((c) every HUGE_SELFCHECK_C-th; no timed pass); (b)'s and (c)'s records equal (a)'s read
+    for read, the dense matrix never made in (a) or (c), each pass's
+    launches (reset just before it, read just after) those of its path.
+    -> the figures."""
+    from fulgor_tpu_torch import demo150k
+
+    t0 = time.perf_counter()
+    cache = os.path.join(tmp, "huge")
+    made = demo150k.ensure_inputs(cache, HUGE_GENOMES, HUGE_READS)
+    idx = Index.load(made["index"])
+    t1 = time.perf_counter()
+    res = demo150k.run_regimes(idx, made["reads"], device, selfcheck=1,
+                               timed=False,
+                               selfcheck_c=HUGE_SELFCHECK_C)
+    paths = huge_paths(res["b_fetch"])
+    for (regime, tool), path in paths.items():
+        if res[regime] is None:
+            continue
+        launches = res[regime][tool]["warm"]["launches"]
+        need, forbid = PATH_KERNELS[path]
+        missing = [k for k in need if launches.get(k, 0) <= 0]
+        extra = [k for k in forbid if launches.get(k, 0) > 0]
+        log(f"[huge] ({regime}) {tool}: launches {launches}, those of path "
+            f"{path}: {not (missing or extra)}")
+        if missing or extra:
+            raise RuntimeError(f"huge ({regime}) {tool}: kernels not "
+                               f"launched {missing}, launched and not "
+                               f"expected {extra}")
+    shutil.rmtree(cache, ignore_errors=True)
+    log(f"[huge] {HUGE_GENOMES} genomes, {HUGE_READS} reads: inputs made in "
+        f"{t1 - t0:.1f} s (build {made['build_s']:.1f} s), regimes in "
+        f"{time.perf_counter() - t1:.1f} s; (b) took the {res['b_fetch']} "
+        f"fetch; (c) {'run' if res['c'] else 'skipped'}")
+    return res
+
+
 def same_records(a, b) -> bool:
     """Two ascii pseudoalignment files hold the same records (compared
     sorted by read id where their bytes differ)."""
@@ -2524,7 +2730,6 @@ def phase_wide(idx, eng, codes, reads, tmp, array, mirror, parent):
             weng._fi_key_cache.clear()
             return weng.pseudoalign_file(reads, o, **kw)
 
-        fn()  # warm-up
         r, _st, _l = timed_passes(f"wide_{tool}", fn, WIDE_PASSES)
         rates[tool] = statistics.median(r)
         profiled_pass(f"wide_{tool}", fn)
@@ -3421,12 +3626,13 @@ def phase_probes(idx, eng, reads, tmp, fi, tu, parent):
     """The two opt-in probes end to end: FI and TU(TAU) under the staged
     probe (FULGOR_PROBE_BUDGET at STAGED_BUDGETS[0], a new engine) and
     under the anchored one (pipeline.ANCHORED_PROBE on the mini engine,
-    restored after): each a warm-up, PROBE_PASSES timed passes
-    (ANCHORED_PASSES anchored) and a profiled pass to a file, which must
-    hold phase 5's FI or phase 6's TU records. The staged passes take turns with as many one-pass passes of
-    the same tool, so that the two rates come from the same stretch of the
-    host's time (its speed drifts within a call); the anchored ones, 4-7x
-    slower, are set against phases 5-6's medians. With `parent`, one staged
+    restored after): a profiled pass to a file, which must hold phase 5's
+    FI or phase 6's TU records; the staged probe also PROBE_PASSES timed
+    passes after a warm-up, in turns with as many one-pass passes of the
+    same tool, so that the two rates come from the same stretch of the
+    host's time (its speed drifts within a call). The anchored probe's
+    rate and launches are its profiled pass's, 4-7x slower than phases
+    5-6's unprofiled medians, which it is set against. With `parent`, one staged
     FI pass also in turns with the parent's kernels, its K10 and K11 by
     the parent's wrappers (passes_in_turns). -> {path: (launches, median
     reads/s)}."""
@@ -3449,10 +3655,9 @@ def phase_probes(idx, eng, reads, tmp, fi, tu, parent):
                 def fn(o=os.devnull, kw=kw, e=e):
                     return e.pseudoalign_file(reads, o, **kw)
 
-                fn()  # warm-up
                 ref, one_pass = refs[tool]
-                where = f"phase {5 if tool == 'fi' else 6}'s"
                 if probe == "staged":
+                    fn()  # warm-up
                     rates, base = [], []
                     for _ in range(PROBE_PASSES):
                         base += timed_passes(tool, lambda kw=kw: (
@@ -3463,12 +3668,14 @@ def phase_probes(idx, eng, reads, tmp, fi, tu, parent):
                     one_pass, where = statistics.median(base), "in turns"
                     if tool == "fi":
                         passes_in_turns("probes", path, fn, parent)
-                else:
-                    rates, _st, launches = timed_passes(path, fn,
-                                                        ANCHORED_PASSES)
                 f = os.path.join(tmp, f"{path}.tsv")
-                timed_passes(path, lambda fn=fn, f=f, path=path: profiled_pass(
-                    path, lambda: fn(f)), 1)
+                fr, _st, fl = timed_passes(
+                    path, lambda fn=fn, f=f, path=path: profiled_pass(
+                        path, lambda: fn(f)), 1)
+                if probe == "anchored":
+                    rates, launches = fr, fl
+                    where = (f"phase {5 if tool == 'fi' else 6}'s; this "
+                             "rate from its profiled pass to a file")
                 same = records_by_qid(f) == records_by_qid(ref)
                 rate = statistics.median(rates)
                 log(f"[probes] {path}: median {rate:.1f} reads/s "
@@ -4060,15 +4267,18 @@ def per_card_launches(fn, names):
     return out, per
 
 
-def phase_cards(idx, eng, reads, tmp, fi, tu, km):
+def phase_cards(idx, eng, reads, tmp, fi, tu, km, base_path, fi_lines):
     """Phase 13, where more than one card is visible: phase 11's GRID over
     distinct cards (the first four, or make_mesh()'s default over all
     where fewer), FI, TU(TAU) and kmer-matches each once to a file equal to
     the one-card file, every card of the grid launching K1, K2, K6 and K3
     in a profiled FI pass, FI timed in turns with the one-card engine; then
     QueryEngine(idx) with no device named, the default mesh over every
-    card, FI and TU(TAU) to files equal to the one-card ones. -> the card
-    count and the FI medians, or None on one card."""
+    card, FI and TU(TAU) to files equal to the one-card ones; then phase
+    5c's processes of the CLI with no --device on the saved index
+    (base_path): each on a card of its own, the merged file phase 5's FI
+    records (fi_lines). -> the card count and the FI medians, or None on
+    one card."""
     cards = visible_cards()
     n = len(cards)
     if n < 2:
@@ -4132,7 +4342,18 @@ def phase_cards(idx, eng, reads, tmp, fi, tu, km):
             raise RuntimeError(f"the default mesh's {tool} differs from the "
                                "one-card file")
         os.remove(path)
-    return dict(cards=n, rate=rate, one=one, reads=num_reads)
+    del deng
+    torch.cuda.empty_cache()
+    mh = phase_multihost(base_path, reads, tmp, fi_lines, device=None,
+                         tag="cards")
+    used = [d["card"] for d in mh["procs"]]
+    log(f"[cards] {MULTIHOST_PROCS} processes with no --device on {n} "
+        f"cards: on {used}")
+    if len(set(used)) != MULTIHOST_PROCS or not all(
+            u.startswith("cuda:") for u in used):
+        raise RuntimeError(f"processes sharing a host took cards {used}, "
+                           "not one card each")
+    return dict(cards=n, rate=rate, one=one, reads=num_reads, procs=used)
 
 
 def main():
@@ -4170,7 +4391,10 @@ def main():
             fi = phase_fi(eng, reads, tmp)
             tu = phase_tu(eng, reads, tmp)
             km = phase_km(eng, reads, tmp)
-            cards = phase_cards(idx, eng, reads, tmp, fi, tu, km)
+            base_path = os.path.join(tmp, "mini.tfur")
+            idx.save(base_path)
+            cards = phase_cards(idx, eng, reads, tmp, fi, tu, km, base_path,
+                                records_by_qid(fi["out"]))
             if cards is None:
                 raise RuntimeError("--cards-only needs two or more cards")
             log(f"[done] {time.perf_counter() - t_start:.1f} s in all; "
@@ -4183,7 +4407,7 @@ def main():
         log(f"[index] covered fraction {eng._covered_frac:.4f} -> probe "
             f"budget {eng._pb}, redo budget {eng._pb_redo}")
         ceng = QueryEngine(phase_cuckoo_index(idx, tmp), device=eng.device)
-        rows = phase_kernels(idx, eng, ceng, codes, parent)
+        rows, huge_errs = phase_kernels(idx, eng, ceng, codes, parent)
         fi = phase_fi(eng, reads, tmp)
         tu = phase_tu(eng, reads, tmp)
         km = phase_km(eng, reads, tmp)
@@ -4192,7 +4416,8 @@ def main():
         t_new = time.perf_counter()
         md = phase_meta_diff(idx, eng, reads, tmp, fi, tu)
         t_md = time.perf_counter()
-        mh = phase_multihost(md["path"], reads, tmp, md.pop("fi_lines"))
+        fi_lines = md.pop("fi_lines")
+        mh = phase_multihost(md["path"], reads, tmp, fi_lines)
         log(f"[phases 5b-5c] meta-diff {t_md - t_new:.1f} s, multihost "
             f"{time.perf_counter() - t_md:.1f} s")
         cuckoo = phase_cuckoo(ceng, reads, tmp, fi, tu, km, kc, dedup,
@@ -4202,7 +4427,10 @@ def main():
         array = phase_array(eng, ceng, codes, fi, tu, mirror)
         wide = phase_wide(idx, eng, codes, reads, tmp, array, mirror,
                           parent)
+        wide["row"]["max_abs_err"] = max(wide["row"]["max_abs_err"],
+                                         huge_errs["first_set_bits"])
         rows.append(wide["row"])
+        huge = phase_huge(tmp, eng.device)
         err2, probe_rows = phase_probe_kernels(eng, idx, codes)
         rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], err2)
         errs = dict(zip(("minidict2_probe", "fi_and", "tu_mask",
@@ -4218,7 +4446,8 @@ def main():
                           fi, tu, km, kc, dedup, array, wide["out"], parent)
         v1 = phase_v1(idx, eng, codes, mirror, args.seed)
         rows.append(v1)
-        cards = phase_cards(idx, eng, reads, tmp, fi, tu, km)
+        cards = phase_cards(idx, eng, reads, tmp, fi, tu, km, md["path"],
+                            fi_lines)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all; end to end "
@@ -4233,7 +4462,10 @@ def main():
         f"{ {k: round(v, 1) for k, v in array['rates'].items()} } reads/s "
         f"(one call each); {WIDE_C} colours: FI {wide['rates']['fi']:.1f} "
         f"(dense FI {wide['rates']['dense_fi']:.1f}), TU({TAU}) "
-        f"{wide['rates']['tu']:.1f} reads/s (medians); opt-in probes "
+        f"{wide['rates']['tu']:.1f} reads/s (medians); {HUGE_GENOMES} "
+        f"colours: regimes (a), (b: the {huge['b_fetch']} fetch) and (c) "
+        f"{'run' if huge['c'] else 'skipped'}, every record equal; opt-in "
+        f"probes "
         f"{ {k: round(v[1], 1) for k, v in probes.items()} } reads/s "
         f"(medians); on a {GRID} grid of this card FI "
         f"{mesh['rates']['fi']:.1f}, TU({TAU}) {mesh['rates']['tu']:.1f} "

@@ -102,9 +102,19 @@ def cmd_pseudoalign(args):
         pid, nprocs = MH.init_multihost(args.coordinator, args.num_procs,
                                         args.proc_id)
         try:
+            device = args.device
+            if device is None:  # one card a process where several share
+                import torch  # a host; alone, the engine's default
+
+                device = MH.process_device(*MH.local_rank(),
+                                           torch.cuda.device_count())
             idx = Index.load(args.index_filename)
             eng = QueryEngine(idx, batch_size=args.batch_size,
-                              device=args.device)
+                              device=device)
+            if args.verbose:
+                print(f"process {pid} runs on {eng.device}"
+                      + (f" (a mesh over {len(eng.mesh.distinct())} cards)"
+                         if eng.mesh is not None else ""))
             MH.pseudoalign_multihost(
                 eng, args.query_filename, args.output_filename,
                 threshold=args.threshold, fmt=args.format,

@@ -5,16 +5,19 @@ chunks with index % num_procs == proc_id of the shared FASTA/FASTQ
 (engine._stream(shard=...)) on its own engine and its own card, and writes
 `{out}.part{proc_id}` (and its `.redo` side fragment). Read ids stay the
 reads' ordinals in the whole file, so process 0 merges the fragments by id
-into the single-process output. Processes that share a host name their
-card with --device (or CUDA_VISIBLE_DEVICES).
+into the single-process output. A process that names no card (--device)
+takes, where it shares its host with others, card local rank % cards
+(local_rank, process_device); alone on its host, the engine's default.
 
 The only traffic between processes is the bring-up of a torch.distributed
-process group (gloo backend, init_method tcp://<coordinator>), one barrier
-when the fragments are complete and one when the merge is; the merge goes
-through the filesystem. Every process parses the whole (usually gzip)
-stream but dispatches only its own chunks: skipping the others' chunks
-skips all card work, host reduction and formatting, which is where the
-time goes.
+process group (gloo backend, init_method tcp://<coordinator>), a gather of
+every process's host name where no --device is named (local_rank), one
+barrier when the fragments are complete and one when the merge is; the
+merge goes through the filesystem. The gather is a collective, so the
+processes must agree: every one names --device or none does, else those
+that gather hang. Every process parses the whole (usually gzip) stream but
+dispatches only its own chunks: skipping the others' chunks skips all card
+work, host reduction and formatting, which is where the time goes.
 """
 
 from __future__ import annotations
@@ -52,6 +55,41 @@ def init_multihost(coordinator: str | None = None,
     dist.init_process_group("gloo", init_method=f"tcp://{coordinator}",
                             world_size=num_procs, rank=proc_id)
     return proc_id, num_procs
+
+
+def host_rank(hostnames: list, rank: int) -> tuple:
+    """(local rank, processes on its host) of process `rank` of a group
+    whose processes run on `hostnames` (one entry a process, in rank
+    order): its local rank counts the lower ranks on the same host."""
+    me = hostnames[rank]
+    return (sum(1 for h in hostnames[:rank] if h == me),
+            sum(1 for h in hostnames if h == me))
+
+
+def local_rank() -> tuple:
+    """(local rank, processes on this host) of this process, from every
+    process's host name (one gloo all_gather_object); (0, 1) outside a
+    process group."""
+    import socket
+
+    import torch.distributed as dist
+
+    if _group_size() <= 1:
+        return 0, 1
+    names = [None] * dist.get_world_size()
+    dist.all_gather_object(names, socket.gethostname())
+    return host_rank(names, dist.get_rank())
+
+
+def process_device(local: int, on_host: int, device_count: int):
+    """The card of a process that names none: None, the engine's default (a
+    mesh over every card of the host, as fulgor_tpu meshes a process's own
+    devices), where the process is alone on its host or no card is
+    visible; else cuda:(local % device_count), one card a process where
+    there are as many cards as processes."""
+    if on_host <= 1 or device_count < 1:
+        return None
+    return f"cuda:{local % device_count}"
 
 
 def _group_size() -> int:

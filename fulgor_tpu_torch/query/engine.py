@@ -90,6 +90,7 @@ cell's device. Not taken here yet: multi-host sharding.
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from collections import deque
@@ -288,6 +289,21 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def on_its_card(entry):
+    """An engine entry point run with the engine's card current on the
+    calling thread, and the caller's card current again after: a ctypes
+    launch goes to the current card, where another card's stream fails (an
+    engine on cuda:1 in a process whose current card is 0, one card a
+    process)."""
+
+    @functools.wraps(entry)
+    def run(self, *args, **kwargs):
+        with M._on(self.device):
+            return entry(self, *args, **kwargs)
+
+    return run
 
 
 class _Fetch:
@@ -936,12 +952,12 @@ class QueryEngine:
         return native.format_km([name], hw, np.array([len(hit)], np.int32),
                                 counts[None, :])
 
-    def _host_full_intersection(self, row_codes: np.ndarray) -> np.ndarray:
-        return self._fi_from_csids(self._host_csids(row_codes))
-
-    def _host_threshold(self, row_codes: np.ndarray,
-                        threshold: float) -> np.ndarray:
-        return self._tu_from_csids(self._host_csids(row_codes), threshold)
+    def _host_mirror_many(self, rows, threshold=None) -> list:
+        """The exact host mirror's colour lists of many reads (FI, or TU
+        at `threshold`), their window csids from one vectorized probe."""
+        return [self._fi_from_csids(cs) if threshold is None
+                else self._tu_from_csids(cs, threshold)
+                for cs in self._host_csids_many(rows)]
 
     def _selfcheck_batch(self, qid0, chunk, lens, n, get_colors, threshold,
                          skip=()):
@@ -951,12 +967,11 @@ class QueryEngine:
         period = self._selfcheck
         if not period:
             return
-        for j in range((-qid0) % period, n, period):
-            if lens[j] > MAX_STREAM_WIDTH or j in skip:
-                continue
-            row = chunk[j, : lens[j]]
-            want = (self._host_full_intersection(row) if threshold is None
-                    else self._host_threshold(row, threshold))
+        js = [j for j in range((-qid0) % period, n, period)
+              if lens[j] <= MAX_STREAM_WIDTH and j not in skip]
+        wants = self._host_mirror_many([chunk[j, : lens[j]] for j in js],
+                                       threshold)
+        for j, want in zip(js, wants):
             got = np.asarray(get_colors(j), dtype=np.uint32)
             if not np.array_equal(got, np.asarray(want, dtype=np.uint32)):
                 raise RuntimeError(
@@ -1018,6 +1033,7 @@ class QueryEngine:
         _rows, cols = np.nonzero(bm)
         return np.split(cols.astype(np.uint32), np.cumsum(counts))[:-1], counts
 
+    @on_its_card
     def pseudoalign_codes(self, codes: np.ndarray, lens: np.ndarray,
                           threshold=None):
         """Pseudoalignment of in-memory reads (fulgor_tpu engine.py:791):
@@ -1079,6 +1095,7 @@ class QueryEngine:
 
         return self._array_batches(codes, lens, step)
 
+    @on_its_card
     def pseudoalign_codes_dedup(self, codes: np.ndarray, lens: np.ndarray):
         """--deduplicate over in-memory reads (fulgor_tpu engine.py:840;
         reference tools/pseudoalign.cpp:91-226): each read's sorted
@@ -1109,6 +1126,7 @@ class QueryEngine:
                 results[r] = colors
         return results
 
+    @on_its_card
     def window_csids_codes(self, codes: np.ndarray, lens: np.ndarray):
         """Per-window lookup of in-memory reads (fulgor_tpu engine.py:898)
         -> list (per read) of (hit bool (W_r,), csid uint32 (W_r,),
@@ -1208,6 +1226,7 @@ class QueryEngine:
             consume(*inflight.popleft())
         return total, parse_sec[0]
 
+    @on_its_card
     def pseudoalign_file(self, query_path: str, out_path: str, threshold=None,
                          fmt: str = "ascii", verbose: bool = False,
                          deduplicate: bool = False, shard=None):
@@ -1650,6 +1669,7 @@ class QueryEngine:
             self._print_stats(stats)
         return stats
 
+    @on_its_card
     def kmer_conservation_file(self, query_path: str, out_path: str,
                                verbose: bool = False):
         """kmer-conservation of a FASTA/FASTQ(.gz) file (fulgor_tpu
@@ -1739,6 +1759,7 @@ class QueryEngine:
                   f"{write_sec:.3f}s")
         return stats
 
+    @on_its_card
     def kmer_matches_file(self, query_path: str, out_path: str,
                           verbose: bool = False):
         """kmer-matches of a FASTA/FASTQ(.gz) file (fulgor_tpu

@@ -180,7 +180,8 @@ def test_selfcheck_compares_with_host_mirror(corpus, tmp_path, monkeypatch):
     eng.pseudoalign_file(qfile, out)
     assert _records(out, "ascii") == refs["ascii"]
     wrong = np.arange(idx.num_colors + 1, dtype=np.uint32)
-    monkeypatch.setattr(eng, "_host_full_intersection", lambda codes: wrong)
+    monkeypatch.setattr(eng, "_host_mirror_many",
+                        lambda rows, tau=None: [wrong] * len(rows))
     with pytest.raises(RuntimeError, match="FULGOR_SELFCHECK"):
         eng.pseudoalign_file(qfile, out)
 

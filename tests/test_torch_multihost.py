@@ -225,3 +225,136 @@ def test_two_process_gloo_cli(built, tmp_path):
     assert ids == list(range(built["n"]))
     assert _records(out, "ascii") == _records(built["single"]["ascii"],
                                               "ascii")
+
+
+@pytest.mark.parametrize("hosts,rank,want", [
+    (["a"], 0, (0, 1)),
+    (["a", "a"], 0, (0, 2)),
+    (["a", "a"], 1, (1, 2)),
+    (["a", "b", "a", "b", "a"], 4, (2, 3)),
+    (["a", "b", "a", "b", "a"], 3, (1, 2)),
+])
+def test_host_rank(hosts, rank, want):
+    assert MH.host_rank(hosts, rank) == want
+
+
+def test_process_device_mapping():
+    """Alone on its host (or with no card) a process keeps the engine's
+    default; processes sharing a host take one card each, round robin."""
+    assert MH.process_device(0, 1, 4) is None
+    assert MH.process_device(0, 1, 1) is None
+    assert MH.process_device(1, 2, 0) is None
+    assert [MH.process_device(r, 4, 4) for r in range(4)] == [
+        "cuda:0", "cuda:1", "cuda:2", "cuda:3"]
+    assert [MH.process_device(r, 3, 2) for r in range(3)] == [
+        "cuda:0", "cuda:1", "cuda:0"]
+    assert MH.local_rank() == (0, 1)  # no process group
+
+
+def test_two_gloo_processes_get_local_ranks(tmp_path):
+    """Two processes of one gloo group on this host: local ranks 0 and 1 of
+    2, and with two cards each would take its own."""
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    coord = f"127.0.0.1:{s.getsockname()[1]}"
+    s.close()
+    code = ("import sys; from fulgor_tpu_torch.parallel import multihost "
+            "as MH; p = int(sys.argv[1]); "
+            f"MH.init_multihost({coord!r}, 2, p); "
+            "r = MH.local_rank(); print('local', p, *r, "
+            "MH.process_device(*r, 2)); MH.shutdown_multihost()")
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": ROOT}
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(p)], cwd=ROOT,
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for p in range(2)]
+    try:
+        logs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert [p.returncode for p in procs] == [0, 0], logs
+    got = [ln for log in logs for ln in log.splitlines()
+           if ln.startswith("local ")]
+    assert got == ["local 0 0 2 cuda:0", "local 1 1 2 cuda:1"], logs
+
+
+class _Chosen(Exception):
+    pass
+
+
+@pytest.mark.parametrize("argv_device,local,want", [
+    (None, (1, 2), "cuda:1"),  # two processes share the host: one card each
+    (None, (0, 2), "cuda:0"),
+    (None, (0, 1), None),  # alone on its host: the engine's default mesh
+    ("cuda:3", (1, 2), "cuda:3"),  # an explicit --device wins
+])
+def test_cli_process_takes_its_card(built, monkeypatch, argv_device, local,
+                                    want):
+    """The CLI's multi-process branch, its group and engine stubbed: the
+    device it gives QueryEngine on a host of two cards."""
+    import torch
+
+    calls = []
+    monkeypatch.setattr(MH, "init_multihost", lambda *a: (local[0], 2))
+    monkeypatch.setattr(MH, "local_rank", lambda: calls.append(1) or local)
+    monkeypatch.setattr(MH, "shutdown_multihost", lambda: None)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+
+    def engine(idx, batch_size, device):
+        raise _Chosen(device)
+
+    monkeypatch.setattr(E, "QueryEngine", engine)
+    argv = ["pseudoalign", "-i", built["index"], "-q", built["qfile"], "-o",
+            "unused.tsv", "--num-procs", "2", "--proc-id", str(local[0]),
+            "--coordinator", "127.0.0.1:1", "--verbose"]
+    with pytest.raises(_Chosen) as chosen:
+        tcli.main(argv + (["--device", argv_device] if argv_device else []))
+    assert chosen.value.args[0] == want
+    assert len(calls) == (0 if argv_device else 1)
+
+
+@pytest.mark.parametrize("entry", [
+    "pseudoalign_codes", "pseudoalign_codes_dedup", "window_csids_codes",
+    "pseudoalign_file", "kmer_conservation_file", "kmer_matches_file"])
+def test_engine_launches_go_to_its_card(monkeypatch, entry):
+    """A process that takes cuda:1 (one card a process) keeps card 0
+    current: each engine entry point makes its engine's card current for
+    its launches (a ctypes launch goes to the current card, where another
+    card's stream fails) and gives the caller's card back after, so that
+    an engine made later with no device still resolves to card 0."""
+    import contextlib
+    import types
+
+    import torch
+
+    from fulgor_tpu_torch.query import engine as E
+
+    current, seen = [0], []
+
+    @contextlib.contextmanager
+    def device(dev):
+        prev, current[0] = current[0], torch.device(dev).index
+        try:
+            yield
+        finally:
+            current[0] = prev
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current[0])
+    monkeypatch.setattr(torch.cuda, "device", device)
+    wrapped = getattr(E.QueryEngine, entry)
+    assert wrapped.__code__ is E.on_its_card(lambda self: None).__code__
+    assert wrapped.__wrapped__.__name__ == entry
+
+    @E.on_its_card
+    def launch(self, x, y=0):
+        seen.append((current[0], x, y))
+        return x + y
+
+    one = types.SimpleNamespace(device=E.resolve_device("cuda:1"))
+    assert launch(one, 2, y=3) == 5 and seen == [(1, 2, 3)]
+    assert current[0] == 0
+    assert E.resolve_device(None) == torch.device("cuda", 0)
+    cpu = types.SimpleNamespace(device=torch.device("cpu"))
+    assert launch(cpu, 1) == 1 and seen[-1] == (0, 1, 0)

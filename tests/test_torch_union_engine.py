@@ -139,7 +139,8 @@ def test_selfcheck_under_threshold(corpus, refs, tmp_path, monkeypatch):
     eng.pseudoalign_file(qfile, out, threshold=0.8)
     assert _records(out, "ascii") == refs[0][0.8, "ascii"]
     wrong = np.arange(idx.num_colors + 1, dtype=np.uint32)
-    monkeypatch.setattr(eng, "_host_threshold", lambda codes, tau: wrong)
+    monkeypatch.setattr(eng, "_host_mirror_many",
+                        lambda rows, tau: [wrong] * len(rows))
     with pytest.raises(RuntimeError, match="FULGOR_SELFCHECK"):
         eng.pseudoalign_file(qfile, out, threshold=0.8)
 
