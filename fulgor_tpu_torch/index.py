@@ -22,6 +22,10 @@ Composition (hybrid kind; meta/diff variants layer on the color-set store):
                        a query touches (color_rows) where the matrix is
                        too large.
     filenames        : reference names in color-id order.
+
+Index.load and the colour sets' first decode (color_sets_decoded) are the
+tracing spans `index.load` and `index.decode`, kept in the per-process
+totals (tracing.PROCESS).
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from . import INDEX_VERSION
+from . import INDEX_VERSION, tracing
 from .constants import EXT, KIND_FROM_EXT
 from .core import container
 from .core import kmers as K
@@ -189,7 +193,8 @@ class Index:
         kinds the color ids are the PERMUTED ids (filenames are stored in
         the same permuted order, reference README.md:222-231)."""
         if self._cs_cache is None:
-            self._cs_cache = self.color_store.decode_all()
+            with tracing.span("index.decode", process=True):
+                self._cs_cache = self.color_store.decode_all()
         return self._cs_cache
 
     def color_set(self, cs_id: int) -> np.ndarray:
@@ -321,6 +326,7 @@ class Index:
         )
 
     @classmethod
+    @tracing.traced("index.load", process=True)
     def load(cls, path: str) -> "Index":
         c = container.Container(path)
         fn_blob = c.array("filenames").tobytes().decode()

@@ -9,6 +9,8 @@ import threading
 
 import numpy as np
 
+from .. import tracing
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 # FULGOR_NATIVE_LIB: alternate build override (e.g. the ASan build — see
 # the Makefile's `asan` target for the full invocation)
@@ -411,12 +413,15 @@ def _bytes_at(buf, size: int) -> bytes:
         ct.addressof(buf.contents)))
 
 
+@tracing.traced("write.emit")
 def _emit(buf, size: int, sink):
     """Dispose of a malloc'd native buffer: with a sink callable, write a
     zero-copy memoryview straight to it (the copy through Python bytes was
     ~4.4 s of a pansal4546 run) and return the byte count; without one,
-    return a bytes copy. Frees the buffer either way."""
+    return a bytes copy. Frees the buffer either way. Tracing: the span
+    `write.emit`, and its bytes added to the counter `write_bytes`."""
     lib = _load()
+    tracing.count("write_bytes", max(0, size))
     try:
         if size <= 0:
             return 0 if sink is not None else b""
@@ -771,12 +776,13 @@ def format_psa_ascii_bits(qids: np.ndarray, bits: np.ndarray, sink=None):
     buf = ct.POINTER(ct.c_char)()
     blen = ct.c_int64()
     mapped = ct.c_int64()
-    rc = lib.fn_format_psa_ascii_bits(
-        qids.ctypes.data_as(ct.POINTER(ct.c_uint32)),
-        bits.ctypes.data_as(ct.POINTER(ct.c_uint32)),
-        n, c32,
-        ct.byref(buf), ct.byref(blen), ct.byref(mapped),
-    )
+    with tracing.span("write.format"):
+        rc = lib.fn_format_psa_ascii_bits(
+            qids.ctypes.data_as(ct.POINTER(ct.c_uint32)),
+            bits.ctypes.data_as(ct.POINTER(ct.c_uint32)),
+            n, c32,
+            ct.byref(buf), ct.byref(blen), ct.byref(mapped),
+        )
     if rc != 0:
         raise RuntimeError("format_psa_ascii_bits failed")
     return _emit(buf, blen.value, sink), int(mapped.value)
@@ -795,13 +801,14 @@ def format_psa_ascii_bits_grouped(qids, rows, inv, sink=None):
     buf = ct.POINTER(ct.c_char)()
     blen = ct.c_int64()
     mapped = ct.c_int64()
-    rc = lib.fn_format_psa_ascii_bits_grouped(
-        qids.ctypes.data_as(ct.POINTER(ct.c_uint32)),
-        rows.ctypes.data_as(ct.POINTER(ct.c_uint32)),
-        inv.ctypes.data_as(ct.POINTER(ct.c_int32)),
-        len(qids), G, c32,
-        ct.byref(buf), ct.byref(blen), ct.byref(mapped),
-    )
+    with tracing.span("write.format"):
+        rc = lib.fn_format_psa_ascii_bits_grouped(
+            qids.ctypes.data_as(ct.POINTER(ct.c_uint32)),
+            rows.ctypes.data_as(ct.POINTER(ct.c_uint32)),
+            inv.ctypes.data_as(ct.POINTER(ct.c_int32)),
+            len(qids), G, c32,
+            ct.byref(buf), ct.byref(blen), ct.byref(mapped),
+        )
     if rc != 0:
         raise RuntimeError("format_psa_ascii_bits_grouped failed")
     return _emit(buf, blen.value, sink), int(mapped.value)

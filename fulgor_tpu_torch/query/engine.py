@@ -91,13 +91,14 @@ cell's device. Not taken here yet: multi-host sharding.
 from __future__ import annotations
 
 import functools
+import itertools
 import os
-import time
 from collections import deque
 
 import numpy as np
 import torch
 
+from .. import tracing
 from ..constants import INVALID_U32
 from ..index import Index
 from ..ops.hostpack import pack_reads_host
@@ -124,7 +125,11 @@ class AsyncWriter:
     """Runs formatter writes on a worker thread so ascii formatting + file
     IO (ctypes releases the GIL during the native calls) overlap device
     compute and the next batch's result fetch. FIFO queue preserves output
-    order; `mapped` and `busy_sec` are valid after close()."""
+    order; `mapped` is valid after close(). The thread reports into the
+    tracing Totals current where the writer was made: span `write` a batch
+    (its busy time), the caller's wait for room in the queue as
+    `write.put`, and close()'s wait for the queue to drain as
+    `write.close`."""
 
     def __init__(self, fmtr):
         import queue
@@ -135,32 +140,34 @@ class AsyncWriter:
         self.has_grouped = hasattr(fmtr, "write_batch_bits_grouped")
         self.q = queue.Queue(maxsize=4)
         self.mapped = 0
-        self.busy_sec = 0.0
         self.err = None
-        self.t = threading.Thread(target=self._run, daemon=True)
+        self.totals = tracing.current()
+        self.t = threading.Thread(target=self._run, name="fulgor-writer",
+                                  daemon=True)
         self.t.start()
 
     def _run(self):
-        while True:
-            item = self.q.get()
-            if item is None:
-                return
-            try:
-                t0 = time.perf_counter()
-                method, args = item
-                if method == "write_batch":
-                    self.fmtr.write_batch(*args)
-                    self.mapped += sum(1 for s in args[1] if len(s))
-                else:  # the bits writers count their mapped reads
-                    self.mapped += getattr(self.fmtr, method)(*args)
-                self.busy_sec += time.perf_counter() - t0
-            except BaseException as e:  # surfaced on next write or close
-                self.err = e
+        with tracing.into(self.totals), tracing.cpu("writer"):
+            while True:
+                item = self.q.get()
+                if item is None:
+                    return
+                try:
+                    with tracing.span("write"):
+                        method, args = item
+                        if method == "write_batch":
+                            self.fmtr.write_batch(*args)
+                            self.mapped += sum(1 for s in args[1] if len(s))
+                        else:  # the bits writers count their mapped reads
+                            self.mapped += getattr(self.fmtr, method)(*args)
+                except BaseException as e:  # surfaced on next write or close
+                    self.err = e
 
     def _put(self, method, *args):
         if self.err is not None:
             raise self.err
-        self.q.put((method, args))
+        with tracing.span("write.put"):
+            self.q.put((method, args))
 
     def write_batch_bits(self, ids, rows):
         self._put("write_batch_bits", ids, rows)
@@ -174,11 +181,12 @@ class AsyncWriter:
         self._put("write_batch", list(ids), list(lists))
 
     def close(self):
-        self.q.put(None)
-        self.t.join()
-        if self.err is not None:
-            raise self.err
-        self.fmtr.close()
+        with tracing.span("write.close"):
+            self.q.put(None)
+            self.t.join()
+            if self.err is not None:
+                raise self.err
+            self.fmtr.close()
 
 
 WIDTH_LADDER = (64, 96, 128, 160, 192, 256, 384, 512, 768, 1024)
@@ -357,11 +365,20 @@ class QueryEngine:
     chip_smoke.py lay a grid over repeated devices.
 
     redo_batches counts the device batches of the redo pools (each a
-    launch sequence on every cell under a mesh)."""
+    launch sequence on every cell under a mesh). The construction is the
+    tracing span `engine.init` (children `engine.decode`, `engine.budget`,
+    `engine.tables`), reported in the stats of the engine's first job."""
 
     def __init__(self, index: Index, batch_size: int = 32768, device=None,
                  dense_max_bytes: int | None = None, use_mesh=None,
                  mesh=None):
+        with tracing.into(tracing.Totals()) as self._init_totals, \
+                tracing.span("engine.init"):
+            self._make(index, batch_size, device, dense_max_bytes, use_mesh,
+                       mesh)
+
+    def _make(self, index, batch_size, device, dense_max_bytes, use_mesh,
+              mesh):
         if mesh is None and (use_mesh or (
                 use_mesh is None and device is None
                 and torch.cuda.is_available()
@@ -380,8 +397,9 @@ class QueryEngine:
         self.device = resolve_device(device)
         self.idx = index
         self.k = index.k
-        self._ekpu = index.expected_kmers_per_unitig()
-        self._cs_cache = index.color_sets_decoded()
+        with tracing.span("engine.decode"):
+            self._ekpu = index.expected_kmers_per_unitig()
+            self._cs_cache = index.color_sets_decoded()
         table_np, self.dparams = index.device_dict()
         self._bits = None  # the dense colour bits on the card: see bits
         self._mesh_bits = None  # their colour shards: see mesh_bits
@@ -389,21 +407,23 @@ class QueryEngine:
         devices = [self.device] if mesh is None else mesh.distinct()
         self._copy_streams = ({d: torch.cuda.Stream(d) for d in devices}
                               if self.device.type == "cuda" else None)
-        if mesh is None:
-            tabs = index.device_tables(self.device)
-            self.table = (tabs["table"] if self.dparams is None else
-                          (tabs["slots"], tabs["text32"], tabs["skew"]))
-            self._mesh_table = None
-        else:
-            # one upload per distinct device of the grid
-            self._mesh_table = M.place_table(mesh, table_np)
-            self.table = self._mesh_table[self.device]
+        with tracing.span("engine.tables"):
+            if mesh is None:
+                tabs = index.device_tables(self.device)
+                self.table = (tabs["table"] if self.dparams is None else
+                              (tabs["slots"], tabs["text32"], tabs["skew"]))
+                self._mesh_table = None
+            else:
+                # one upload per distinct device of the grid
+                self._mesh_table = M.place_table(mesh, table_np)
+                self.table = self._mesh_table[self.device]
         if self.dparams is None:
             # cuckoo: its probe never overflows, so no probe budgets and
             # only reads over MAX_STREAM_WIDTH are redone
             self._pb = None
         else:
-            self._covered_frac, self._pb = self._mini_probe_budget(index)
+            with tracing.span("engine.budget"):
+                self._covered_frac, self._pb = self._mini_probe_budget(index)
         # FULGOR_PROBE_BUDGET_REDO=vb,sc (or a staged vb1,vb2,sc,RU): the
         # deferred redo's budget, as fulgor_tpu reads it (engine.py:340)
         pb_redo = os.environ.get("FULGOR_PROBE_BUDGET_REDO")
@@ -1162,8 +1182,13 @@ class QueryEngine:
         is parsed, only those with chunk index % num_procs == proc_id are
         dispatched; qid0 stays the read's ordinal in the whole file, so
         that the processes' fragments merge by id (parallel/multihost.py).
-        -> (num_reads_total, parse_sec), the total the whole file's even
-        under a shard."""
+        -> num_reads_total, the whole file's even under a shard.
+
+        Spans (tracing): `parse.read` (the native parse step) and
+        `parse.put` (the copy out and the wait for room in the queue) on
+        the parse thread, `parse.wait` (the wait for a parsed chunk) and
+        `dispatch` (padding a sub-batch and dispatch(chunk): the host
+        pack, the upload, the launches) on the calling thread."""
         import queue
         import threading
 
@@ -1171,32 +1196,38 @@ class QueryEngine:
 
         stream = ReadsStream(query_path, self.batch, row_len=MAX_STREAM_WIDTH)
         q: queue.Queue = queue.Queue(maxsize=2)
-        parse_sec = [0.0]
         pid, nprocs = (0, 1) if shard is None else shard
+        totals = tracing.current()
 
         def producer():
-            try:
-                t = time.perf_counter()
-                base = 0
-                for ci, (codes, lens, names) in enumerate(stream):
-                    parse_sec[0] += time.perf_counter() - t
-                    if ci % nprocs == pid:
-                        # copy out of the stream's reused buffers
-                        q.put((codes.copy(), lens,
-                               names if need_names else None, base))
-                    base += len(lens)
-                    t = time.perf_counter()
-                parse_sec[0] += time.perf_counter() - t
-                q.put(("total", base))
-            except BaseException as e:  # surface parse failures
-                q.put(e)
+            with tracing.into(totals), tracing.cpu("parse"):
+                try:
+                    base = 0
+                    chunks = iter(stream)
+                    for ci in itertools.count():
+                        with tracing.span("parse.read"):
+                            item = next(chunks, None)
+                        if item is None:
+                            break
+                        codes, lens, names = item
+                        if ci % nprocs == pid:
+                            # copy out of the stream's reused buffers
+                            with tracing.span("parse.put"):
+                                q.put((codes.copy(), lens,
+                                       names if need_names else None, base))
+                        base += len(lens)
+                    q.put(("total", base))
+                except BaseException as e:  # surface parse failures
+                    q.put(e)
 
-        th = threading.Thread(target=producer, daemon=True)
+        th = threading.Thread(target=producer, name="fulgor-parse",
+                              daemon=True)
         th.start()
         total = 0
         inflight: deque = deque()
         while True:
-            item = q.get()
+            with tracing.span("parse.wait"):
+                item = q.get()
             if isinstance(item, BaseException):
                 th.join()
                 raise item
@@ -1212,19 +1243,21 @@ class QueryEngine:
             # B_eff * (W - k + 1) stays within the lane budget
             B_eff = self._batch_for_width(W)
             for lo in range(0, max(n, 1), B_eff):
-                n_sub = min(B_eff, n - lo) if n else 0
-                chunk = np.full((B_eff, W), 4, dtype=np.uint8)
-                chunk[:n_sub] = codes[lo:lo + n_sub, :W]
+                with tracing.span("dispatch"):
+                    n_sub = min(B_eff, n - lo) if n else 0
+                    chunk = np.full((B_eff, W), 4, dtype=np.uint8)
+                    chunk[:n_sub] = codes[lo:lo + n_sub, :W]
+                    handle = dispatch(chunk)
                 inflight.append((
                     base + lo, n_sub, lens[lo:lo + n_sub],
                     None if names is None else names[lo:lo + n_sub],
-                    dispatch(chunk), chunk))
+                    handle, chunk))
                 if len(inflight) > 2:
                     consume(*inflight.popleft())
         th.join()
         while inflight:
             consume(*inflight.popleft())
-        return total, parse_sec[0]
+        return total
 
     @on_its_card
     def pseudoalign_file(self, query_path: str, out_path: str, threshold=None,
@@ -1240,11 +1273,11 @@ class QueryEngine:
         out_path + ".redo", so that both files are id-ascending
         (parallel/multihost.py merges them). -> stats dict (num_reads, of
         this process, num_reads_total, of the file, num_mapped,
-        parse/query/redo/write seconds, num_redo, the redone read ids and
-        num_redo_host, the redone reads the host mirror decided)."""
+        parse/query/host/redo/write seconds, num_redo, the redone read ids
+        and num_redo_host, the redone reads the host mirror decided; the
+        job's stage totals and counters, _stage_stats)."""
         if threshold is not None and not 0.0 < threshold <= 1.0:
             raise ValueError("threshold must be a float in (0.0, 1.0]")
-        t0 = time.perf_counter()
         if deduplicate:
             if shard is not None:
                 raise ValueError("deduplicate runs in one process (its "
@@ -1252,14 +1285,49 @@ class QueryEngine:
             if threshold is not None:
                 raise ValueError("deduplicate takes full intersection only "
                                  "(no threshold)")
-            return self._pseudoalign_dedup_stream(query_path, out_path, fmt,
-                                                  verbose, t0)
+        with tracing.job() as tot:
+            stats = (self._pseudoalign_dedup_stream(query_path, out_path, fmt)
+                     if deduplicate else
+                     self._pseudoalign_stream(query_path, out_path, threshold,
+                                              fmt, shard))
+        stats.update(self._stage_stats(tot))
+        if verbose:
+            self._print_stats(stats)
+        return stats
+
+    def _stage_stats(self, tot) -> dict:
+        """A job's stage seconds and counters from its tracing Totals: every
+        span total as `<name>_sec` and every counter (Totals.stats); the
+        stage keys the entry points have always returned (parse_sec: the
+        parse thread's `parse.read`; query_sec: `fetch.wait`; host_sec:
+        `colour`; redo_sec: `redo`; write_sec: `write`, the writer's busy
+        time) and elapsed (`job`); and, in the first job of an engine, its
+        construction's (engine_init_sec and its children)."""
+        st = tot.stats()
+        st.update(parse_sec=tot.sec("parse.read"),
+                  query_sec=tot.sec("fetch.wait"), host_sec=tot.sec("colour"),
+                  redo_sec=tot.sec("redo"), write_sec=tot.sec("write"),
+                  elapsed=tot.sec("job"))
+        if self._init_totals is not None:
+            st.update(self._init_totals.stats())
+            self._init_totals = None
+        return st
+
+    def _pseudoalign_stream(self, query_path, out_path, threshold, fmt,
+                            shard) -> dict:
+        """pseudoalign_file's streamed FI and TU, inside its job. Spans
+        (tracing) on the calling thread: `fetch.wait` (a batch's results
+        reaching the host), `rows` (the dense and lists paths' rows
+        written), `colour` (the runs fetch's and the no-dense TU's host
+        colour step; the runs fetch's children `colour.overflow`,
+        `colour.keys`, `colour.cache`, `colour.and`, with counters
+        `key_lookups` and `key_hits`), `redo` (children `redo.reparse`,
+        `redo.reprobe`, `redo.mirror`, `redo.lists`), and the writer's
+        `write.put` and `write.close` where they block."""
         C = self.idx.num_colors
         fmtr = AsyncWriter(make_formatter(fmt, out_path, C))
         num_reads = num_run_ovf = 0
-        query_sec = host_sec = 0.0
         redo_ids: list = []  # reads written through the redo path
-        redo_sec = 0.0
         num_redo_host = 0
         # the colour stage (fulgor_tpu engine.py:1072-1077): lists fetch
         # (one device only), runs fetch (FI) or runs scored on the host
@@ -1329,43 +1397,48 @@ class QueryEngine:
                                  else chunk[j, : lens[j]].copy()))
             return {int(j) for j in js}
 
+        @tracing.traced("redo")
         def flush_deferred(final=False):
-            nonlocal redo_sec, num_redo_host
-            tr = time.perf_counter()
+            nonlocal num_redo_host
             if deferred and (final or len(deferred) >= self.redo_flush):
                 from ..native import lib as native
 
                 long_pos = [i for i, (_, r) in enumerate(deferred) if r is None]
                 if long_pos:
-                    seqs, _nm = native.parse_reads_select(
-                        query_path, [deferred[i][0] for i in long_pos])
+                    with tracing.span("redo.reparse"):
+                        seqs, _nm = native.parse_reads_select(
+                            query_path, [deferred[i][0] for i in long_pos])
                     for i, s in zip(long_pos, seqs):
                         deferred[i] = (deferred[i][0],
                                        np.asarray(s, dtype=np.uint8))
                 ids = [q for q, _ in deferred]
                 rows = [r for _, r in deferred]
                 deferred.clear()
-                pending_redo.append((ids, rows, (
-                    self._device_tu_dispatch(rows, threshold) if tu_dense
-                    else self._device_csids_dispatch(rows))))
+                with tracing.span("redo.reprobe"):
+                    pending_redo.append((ids, rows, (
+                        self._device_tu_dispatch(rows, threshold) if tu_dense
+                        else self._device_csids_dispatch(rows))))
             while pending_redo and (final or len(pending_redo) >= 2):
                 ids, rows, state = pending_redo.popleft()
                 # TU with K4: colour lists; else per-read csids
-                done = (self._device_tu_resolve(rows, state) if tu_dense
-                        else self._device_csids_resolve(rows, state))
+                with tracing.span("redo.reprobe"):
+                    done = (self._device_tu_resolve(rows, state) if tu_dense
+                            else self._device_csids_resolve(rows, state))
                 left = [i for i, c in enumerate(done) if c is None]
-                for i, c in zip(left, self._host_csids_many(
-                        [rows[i] for i in left])):
-                    done[i] = (self._tu_from_csids(c, threshold) if tu_dense
-                               else c)
+                with tracing.span("redo.mirror"):
+                    for i, c in zip(left, self._host_csids_many(
+                            [rows[i] for i in left])):
+                        done[i] = (self._tu_from_csids(c, threshold)
+                                   if tu_dense else c)
                 num_redo_host += len(left)
-                if threshold is None:
-                    done = self._fi_lists_from_csids_many(done)
-                elif not tu_dense:
-                    done = [self._tu_from_csids(c, threshold) for c in done]
+                with tracing.span("redo.lists"):
+                    if threshold is None:
+                        done = self._fi_lists_from_csids_many(done)
+                    elif not tu_dense:
+                        done = [self._tu_from_csids(c, threshold)
+                                for c in done]
                 redo_sink().write_batch(ids, done)
                 redo_ids.extend(ids)
-            redo_sec += time.perf_counter() - tr
 
         def write_rows(qid0, n, lens, chunk, rows, keep):
             # the kept reads' (n, C32) u32 result rows, in read order; the
@@ -1387,49 +1460,52 @@ class QueryEngine:
                                       threshold, skip=dropped)
                 fmtr.write_batch([qid0 + int(j) for j in wr],
                                  [lists[j] for j in wr])
-            flush_deferred()
 
         def consume(qid0, n, lens, _names, handle, chunk):
-            nonlocal query_sec
-            tq = time.perf_counter()
-            bits, ovf = handle.numpy()
-            query_sec += time.perf_counter() - tq
-            # a mesh's rows carry its pad words too
-            rows = np.ascontiguousarray(bits[:n, : self.idx.words_per_set])
-            write_rows(qid0, n, lens, chunk, rows.view(np.uint32),
-                       (lens <= MAX_STREAM_WIDTH) & ~ovf[:n])
+            with tracing.span("fetch.wait"):
+                bits, ovf = handle.numpy()
+            with tracing.span("rows"):
+                # a mesh's rows carry its pad words too
+                rows = np.ascontiguousarray(bits[:n, : self.idx.words_per_set])
+                write_rows(qid0, n, lens, chunk, rows.view(np.uint32),
+                           (lens <= MAX_STREAM_WIDTH) & ~ovf[:n])
+            flush_deferred()
 
         def consume_lists(qid0, n, lens, _names, handle, chunk):
             # lists fetch (fulgor_tpu engine.py:1237): each read's first
             # T_LIST colours; the rows of reads with more are fetched whole
-            nonlocal query_sec
             fetch, bits_dev = handle
-            tq = time.perf_counter()
-            cnt, lists, ovf = (a[:n] for a in fetch.numpy())
-            keep = (lens <= MAX_STREAM_WIDTH) & ~ovf
-            over = np.flatnonzero(keep & (cnt > T_LIST))
-            rows = np.zeros((n, self.idx.words_per_set), dtype=np.uint32)
-            rows[over] = self._fetch_rows(bits_dev, over).view(np.uint32)
-            query_sec += time.perf_counter() - tq
-            few = np.flatnonzero(keep & (cnt <= T_LIST))
-            ids = lists[few][np.arange(lists.shape[1]) < cnt[few][:, None]]
-            from ..native import lib as native
+            with tracing.span("fetch.wait"):
+                cnt, lists, ovf = (a[:n] for a in fetch.numpy())
+                keep = (lens <= MAX_STREAM_WIDTH) & ~ovf
+                over = np.flatnonzero(keep & (cnt > T_LIST))
+                rows = np.zeros((n, self.idx.words_per_set), dtype=np.uint32)
+                rows[over] = self._fetch_rows(bits_dev, over).view(np.uint32)
+            with tracing.span("rows"):
+                few = np.flatnonzero(keep & (cnt <= T_LIST))
+                ids = lists[few][np.arange(lists.shape[1])
+                                 < cnt[few][:, None]]
+                from ..native import lib as native
 
-            native.or_bits_at(rows, np.repeat(few, cnt[few]).astype(np.int64),
-                              ids.astype(np.int64))
-            write_rows(qid0, n, lens, chunk, rows, keep)
+                native.or_bits_at(rows, np.repeat(few, cnt[few]).astype(
+                    np.int64), ids.astype(np.int64))
+                write_rows(qid0, n, lens, chunk, rows, keep)
+            flush_deferred()
 
         def consume_runs(qid0, n, lens, _names, handle, chunk):
             # runs fetch (fulgor_tpu engine.py:1310): each read's sorted
             # distinct run csids are its key; each distinct key is ANDed
             # once on the host (the key cache spans batches) and the rows
             # written grouped
-            nonlocal num_reads, query_sec, host_sec, num_run_ovf
             fetch, csid_dev = handle
-            tq = time.perf_counter()
-            runs, povf, rovf = (a[:n] for a in fetch.numpy())
-            th = time.perf_counter()
-            query_sec += th - tq
+            with tracing.span("fetch.wait"):
+                runs, povf, rovf = (a[:n] for a in fetch.numpy())
+            colour_runs(qid0, n, lens, chunk, runs, povf, rovf, csid_dev)
+            flush_deferred()
+
+        @tracing.traced("colour")
+        def colour_runs(qid0, n, lens, chunk, runs, povf, rovf, csid_dev):
+            nonlocal num_reads, num_run_ovf
             if (n and rovf.mean() > 0.02
                     and self._runs_R == self.runs_fi_budget):
                 self._runs_R = 2 * self.runs_fi_budget  # for later batches
@@ -1440,43 +1516,51 @@ class QueryEngine:
             ro = np.flatnonzero(fit & rovf & ~povf)
             ro_res = None
             if len(ro):
-                ro_res = self._fi_rows_from_csid_matrix(
-                    self._fetch_rows(csid_dev, ro).view(np.uint32),
-                    np.maximum(0, lens[ro].astype(np.int64) - self.k + 1))
+                with tracing.span("colour.overflow"):
+                    ro_res = self._fi_rows_from_csid_matrix(
+                        self._fetch_rows(csid_dev, ro).view(np.uint32),
+                        np.maximum(0, lens[ro].astype(np.int64) - self.k + 1))
                 num_run_ovf += len(ro)
             dropped = defer_reads(qid0, chunk, lens,
                                   np.flatnonzero(~fit | povf))
             num_reads += n
             kj = np.flatnonzero(keep)
-            sk = np.ascontiguousarray(
-                self._distinct_rows(runs.view(np.uint32))[0][kj])
-            # distinct rows through a void view (np.unique(axis=0) without
-            # its per-column lexsort)
-            v = sk.view([("", sk.dtype, sk.shape[1])]).ravel()
-            _, kidx, inv = np.unique(v, return_index=True, return_inverse=True)
-            keys = sk[kidx]
+            with tracing.span("colour.keys"):
+                sk = np.ascontiguousarray(
+                    self._distinct_rows(runs.view(np.uint32))[0][kj])
+                # distinct rows through a void view (np.unique(axis=0)
+                # without its per-column lexsort)
+                v = sk.view([("", sk.dtype, sk.shape[1])]).ravel()
+                _, kidx, inv = np.unique(v, return_index=True,
+                                         return_inverse=True)
+                keys = sk[kidx]
             cache = self._fi_key_cache
             rowlen = keys.shape[1] * 4
             kb = keys.tobytes()
             res = np.empty((len(keys), self.idx.words_per_set),
                            dtype=np.uint32)
             miss = []
-            for i in range(len(keys)):
-                r = cache.get(kb[i * rowlen: (i + 1) * rowlen])
-                if r is None:
-                    miss.append(i)
-                else:
-                    res[i] = r
+            with tracing.span("colour.cache"):
+                for i in range(len(keys)):
+                    r = cache.get(kb[i * rowlen: (i + 1) * rowlen])
+                    if r is None:
+                        miss.append(i)
+                    else:
+                        res[i] = r
+            tracing.count("key_lookups", len(keys))
+            tracing.count("key_hits", len(keys) - len(miss))
             if miss:
                 mk = keys[miss]
                 valid = mk != np.uint32(INVALID_U32)
-                mres = self._intersect_segments(
-                    mk[valid].astype(np.int64), valid.sum(axis=1))
+                with tracing.span("colour.and"):
+                    mres = self._intersect_segments(
+                        mk[valid].astype(np.int64), valid.sum(axis=1))
                 res[miss] = mres
-                if len(cache) + len(miss) > self._fi_key_cache_cap:
-                    cache.clear()
-                for i, row in zip(miss, mres):
-                    cache[kb[i * rowlen: (i + 1) * rowlen]] = row
+                with tracing.span("colour.cache"):
+                    if len(cache) + len(miss) > self._fi_key_cache_cap:
+                        cache.clear()
+                    for i, row in zip(miss, mres):
+                        cache[kb[i * rowlen: (i + 1) * rowlen]] = row
             # the run-overflowed reads' rows join as extra distinct rows
             full_inv = np.empty(n, dtype=np.int32)
             full_inv[kj] = inv.reshape(-1)
@@ -1495,18 +1579,19 @@ class QueryEngine:
             else:
                 lists = self._bits_to_lists(res, C)[0]
                 fmtr.write_batch(qid0 + wr, [lists[g] for g in full_inv[wr]])
-            host_sec += time.perf_counter() - th
-            flush_deferred()
 
         def consume_tu_runs(qid0, n, lens, _names, handle, chunk):
             # TU with no dense matrix (fulgor_tpu engine.py:1430): each
             # read's (csid, count) runs scored on the host against the
             # decoded sets
-            nonlocal num_reads, query_sec, host_sec
-            tq = time.perf_counter()
-            rc, cnts, npos, ovf = (a[:n] for a in handle.numpy())
-            th = time.perf_counter()
-            query_sec += th - tq
+            with tracing.span("fetch.wait"):
+                rc, cnts, npos, ovf = (a[:n] for a in handle.numpy())
+            colour_tu_runs(qid0, n, lens, chunk, rc, cnts, npos, ovf)
+            flush_deferred()
+
+        @tracing.traced("colour")
+        def colour_tu_runs(qid0, n, lens, chunk, rc, cnts, npos, ovf):
+            nonlocal num_reads
             keep = (lens <= MAX_STREAM_WIDTH) & ~ovf
             dropped = defer_reads(qid0, chunk, lens, np.flatnonzero(~keep))
             num_reads += n
@@ -1526,8 +1611,6 @@ class QueryEngine:
             self._selfcheck_batch(qid0, chunk, lens, n, lambda j: lists[j],
                                   threshold, skip=dropped)
             fmtr.write_batch([qid0 + j for j in lists], list(lists.values()))
-            host_sec += time.perf_counter() - th
-            flush_deferred()
 
         if use_lists:
             consume = consume_lists
@@ -1535,31 +1618,19 @@ class QueryEngine:
             consume = consume_runs
         elif tu_runs:
             consume = consume_tu_runs
-        total, parse_sec = self._stream(query_path, dispatch, consume,
-                                        shard=shard)
+        total = self._stream(query_path, dispatch, consume, shard=shard)
         flush_deferred(final=True)
         fmtr.close()
-        num_mapped, write_sec = fmtr.mapped, fmtr.busy_sec
+        num_mapped = fmtr.mapped
         if redo_fmtr is not None:
             redo_fmtr.close()
             num_mapped += redo_fmtr.mapped
-            write_sec += redo_fmtr.busy_sec
-        elapsed = time.perf_counter() - t0
-        # per-stage busy times; the stages overlap (parse on a prefetch
-        # thread, the card async, formatting on the writer thread)
-        stats = dict(num_reads=num_reads, num_reads_total=total,
-                     num_mapped=num_mapped, parse_sec=parse_sec,
-                     query_sec=query_sec, host_sec=host_sec,
-                     write_sec=write_sec, num_redo=len(redo_ids),
-                     redo_ids=redo_ids, num_redo_host=num_redo_host,
-                     redo_sec=redo_sec, num_run_ovf=num_run_ovf,
-                     elapsed=elapsed)
-        if verbose:
-            self._print_stats(stats)
-        return stats
+        return dict(num_reads=num_reads, num_reads_total=total,
+                    num_mapped=num_mapped, num_redo=len(redo_ids),
+                    redo_ids=redo_ids, num_redo_host=num_redo_host,
+                    num_run_ovf=num_run_ovf)
 
-    def _pseudoalign_dedup_stream(self, query_path, out_path, fmt, verbose,
-                                  t0):
+    def _pseudoalign_dedup_stream(self, query_path, out_path, fmt):
         """--deduplicate (fulgor_tpu engine.py:1507; reference
         tools/pseudoalign.cpp:92-226): stream the reads once, fetching each
         read's run csids (K6 at twice _runs_budget), group the reads by
@@ -1567,14 +1638,15 @@ class QueryEngine:
         every read in read order at the end. A read past the run budget
         takes its exact window csids from the card-resident csid rows;
         reads in probe overflow and reads over MAX_STREAM_WIDTH take the
-        (8, 4) re-probe, then the host mirror."""
+        (8, 4) re-probe, then the host mirror. Spans (tracing):
+        `fetch.wait`, then after the stream `redo` (the deferred reads'
+        csids) and `write` (the AND, `colour.and`, and the formatting)."""
         from ..native import lib as native
 
         C = self.idx.num_colors
         inv = np.uint32(INVALID_U32)
         groups: dict = {}  # sorted distinct csids (u32 bytes) -> read ids
         deferred: list = []  # (read id, codes | None = re-parse)
-        query_sec = 0.0
         num_run_ovf = 0
 
         def group(qid, csids):
@@ -1595,16 +1667,16 @@ class QueryEngine:
             return self._fetch(run_csid, povf, rovf), csid
 
         def consume(qid0, n, lens, _names, handle, chunk):
-            nonlocal query_sec, num_run_ovf
+            nonlocal num_run_ovf
             fetch, csid_dev = handle
-            tq = time.perf_counter()
-            runs, povf, rovf = fetch.numpy()
-            runs, povf, rovf = runs[:n].view(np.uint32), povf[:n], rovf[:n]
-            fit = lens <= MAX_STREAM_WIDTH
-            ro = np.flatnonzero(fit & rovf & ~povf)
-            if len(ro):  # every window decided: gather the exact rows
-                rows_cs = self._fetch_rows(csid_dev, ro)
-            query_sec += time.perf_counter() - tq
+            with tracing.span("fetch.wait"):
+                runs, povf, rovf = fetch.numpy()
+                runs, povf, rovf = (runs[:n].view(np.uint32), povf[:n],
+                                    rovf[:n])
+                fit = lens <= MAX_STREAM_WIDTH
+                ro = np.flatnonzero(fit & rovf & ~povf)
+                if len(ro):  # every window decided: gather the exact rows
+                    rows_cs = self._fetch_rows(csid_dev, ro)
             for t, j in enumerate(ro.tolist()):
                 group(qid0 + j, rows_cs[t, : max(0, lens[j] - self.k + 1)]
                       .view(np.uint32))
@@ -1616,58 +1688,55 @@ class QueryEngine:
             for j in np.flatnonzero(fit & ~povf & ~rovf).tolist():
                 groups.setdefault(s[j, : cnt[j]].tobytes(), []).append(qid0 + j)
 
-        total, parse_sec = self._stream(query_path, dispatch, consume)
-        tr = time.perf_counter()
-        long_pos = [i for i, (_, r) in enumerate(deferred) if r is None]
-        if long_pos:
-            seqs, _nm = native.parse_reads_select(
-                query_path, [deferred[i][0] for i in long_pos])
-            for i, seq in zip(long_pos, seqs):
-                deferred[i] = (deferred[i][0], np.asarray(seq, dtype=np.uint8))
-        rows = [r for _, r in deferred]
-        done = (self._device_csids_resolve(
-            rows, self._device_csids_dispatch(rows)) if rows else [])
-        left = [i for i, c in enumerate(done) if c is None]
-        for i, c in zip(left, self._host_csids_many([rows[i] for i in left])):
-            done[i] = c
-        for (qid, _r), c in zip(deferred, done):
-            group(qid, c)
-        tw = time.perf_counter()
-        keys = list(groups)
-        bits = self._fi_rows_from_keys(keys)
-        key_of = np.empty(total, dtype=np.int32)  # read -> its row of bits
-        key_of[np.fromiter((q for v in groups.values() for q in v),
-                           dtype=np.int64, count=total)] = np.repeat(
-            np.arange(len(keys), dtype=np.int32),
-            [len(v) for v in groups.values()])
-        fmtr = make_formatter(fmt, out_path, C)
-        try:
-            step = 1 << 16
-            lists = (None if hasattr(fmtr, "write_batch_bits_grouped")
-                     else self._bits_to_lists(bits, C)[0])
-            for lo in range(0, total, step):
-                hi = min(total, lo + step)
-                if lists is None:  # ascii: each distinct row formats once
-                    fmtr.write_batch_bits_grouped(
-                        np.arange(lo, hi, dtype=np.uint32), bits,
-                        key_of[lo:hi])
-                else:
-                    fmtr.write_batch(range(lo, hi),
-                                     [lists[g] for g in key_of[lo:hi]])
-        finally:
-            fmtr.close()
-        elapsed = time.perf_counter() - t0
-        stats = dict(num_reads=total, num_reads_total=total,
-                     num_mapped=int(bits.any(axis=1)[key_of].sum()),
-                     parse_sec=parse_sec, query_sec=query_sec,
-                     redo_sec=tw - tr, write_sec=elapsed - (tw - t0),
-                     num_redo=len(deferred),
-                     redo_ids=[q for q, _ in deferred],
-                     num_redo_host=len(left), num_run_ovf=num_run_ovf,
-                     num_keys=len(keys), elapsed=elapsed)
-        if verbose:
-            self._print_stats(stats)
-        return stats
+        total = self._stream(query_path, dispatch, consume)
+        with tracing.span("redo"):
+            long_pos = [i for i, (_, r) in enumerate(deferred) if r is None]
+            if long_pos:
+                seqs, _nm = native.parse_reads_select(
+                    query_path, [deferred[i][0] for i in long_pos])
+                for i, seq in zip(long_pos, seqs):
+                    deferred[i] = (deferred[i][0],
+                                   np.asarray(seq, dtype=np.uint8))
+            rows = [r for _, r in deferred]
+            done = (self._device_csids_resolve(
+                rows, self._device_csids_dispatch(rows)) if rows else [])
+            left = [i for i, c in enumerate(done) if c is None]
+            for i, c in zip(left,
+                            self._host_csids_many([rows[i] for i in left])):
+                done[i] = c
+            for (qid, _r), c in zip(deferred, done):
+                group(qid, c)
+        with tracing.span("write"):
+            keys = list(groups)
+            with tracing.span("colour.and"):
+                bits = self._fi_rows_from_keys(keys)
+            key_of = np.empty(total, dtype=np.int32)  # read -> its bits row
+            key_of[np.fromiter((q for v in groups.values() for q in v),
+                               dtype=np.int64, count=total)] = np.repeat(
+                np.arange(len(keys), dtype=np.int32),
+                [len(v) for v in groups.values()])
+            fmtr = make_formatter(fmt, out_path, C)
+            try:
+                step = 1 << 16
+                lists = (None if hasattr(fmtr, "write_batch_bits_grouped")
+                         else self._bits_to_lists(bits, C)[0])
+                for lo in range(0, total, step):
+                    hi = min(total, lo + step)
+                    if lists is None:  # ascii: each distinct row formats once
+                        fmtr.write_batch_bits_grouped(
+                            np.arange(lo, hi, dtype=np.uint32), bits,
+                            key_of[lo:hi])
+                    else:
+                        fmtr.write_batch(range(lo, hi),
+                                         [lists[g] for g in key_of[lo:hi]])
+            finally:
+                fmtr.close()
+            num_mapped = int(bits.any(axis=1)[key_of].sum())
+        return dict(num_reads=total, num_reads_total=total,
+                    num_mapped=num_mapped, num_redo=len(deferred),
+                    redo_ids=[q for q, _ in deferred],
+                    num_redo_host=len(left), num_run_ovf=num_run_ovf,
+                    num_keys=len(keys))
 
     @on_its_card
     def kmer_conservation_file(self, query_path: str, out_path: str,
@@ -1679,13 +1748,22 @@ class QueryEngine:
         at _runs_budget; reads past it or in probe overflow re-probe at the
         redo budget with K6 at one run a window, and reads still in
         overflow and every read over MAX_STREAM_WIDTH bases take the exact
-        host mirror. -> stats dict."""
+        host mirror. -> stats dict (pseudoalign_file's, less num_mapped)."""
+        with tracing.job() as tot:
+            stats = self._kmer_conservation(query_path, out_path)
+        stats.update(self._stage_stats(tot))
+        if verbose:
+            self._print_inline_stats("kmer-conservation", stats)
+        return stats
+
+    def _kmer_conservation(self, query_path, out_path) -> dict:
+        """kmer_conservation_file inside its job. Spans (tracing) a batch:
+        `fetch.wait`, `redo` (its reads inline) and `write` (formatting and
+        the file's write, on the calling thread)."""
         from ..native import lib as native
 
-        t0 = time.perf_counter()
         f = open(out_path, "wb", buffering=1 << 20)
         num_reads = 0
-        query_sec = redo_sec = write_sec = 0.0
         redo_ids: list = []
         num_redo_host = 0
 
@@ -1701,63 +1779,51 @@ class QueryEngine:
                 dparams=self.dparams, probe_budget=self._pb))
 
         def consume(qid0, n, lens, names, handle, chunk):
-            nonlocal num_reads, query_sec, redo_sec, write_sec, num_redo_host
-            tq = time.perf_counter()
-            rc, rs, rl, ovf = handle.numpy()
-            rc, rs, rl = (rc[:n].view(np.uint32), rs[:n].view(np.uint16),
-                          rl[:n].view(np.uint16))
-            tr = time.perf_counter()
-            query_sec += tr - tq
-            valid = rc != np.uint32(INVALID_U32)
-            redo = np.flatnonzero((lens > MAX_STREAM_WIDTH) | ovf[:n])
-            if len(redo):
-                rows = self._redo_rows(query_path, qid0, chunk, lens, redo)
-                done = self._device_kc_resolve(
-                    rows, self._device_kc_dispatch(rows))
-                left = [i for i, d in enumerate(done) if d is None]
-                for i, c in zip(left, self._host_csids_many(
-                        [rows[i] for i in left])):
-                    t = np.array(conservation_runs(c != INVALID_U32, c),
-                                 dtype=np.int64).reshape(-1, 3)
-                    done[i] = (t[:, 0], t[:, 1], t[:, 2])
-                num_redo_host += len(left)
-                redo_ids.extend((qid0 + redo).tolist())
-                valid[redo] = False
-            tw = time.perf_counter()
-            redo_sec += tw - tr
-            counts = valid.sum(axis=1)
-            cols = [rs[valid], rl[valid], rc[valid]]
-            if len(redo):
-                # the redone reads' runs go where their rows' would have
-                at = np.repeat(np.cumsum(counts)[redo] - counts[redo],
-                               [len(d[0]) for d in done])
-                cols = [np.insert(a.astype(np.uint32), at, np.concatenate(
-                    [d[x] for d in done]).astype(np.uint32))
-                    for x, a in enumerate(cols)]
-                counts[redo] = [len(d[0]) for d in done]
-            run_offs = np.zeros(n + 1, dtype=np.int64)
-            np.cumsum(counts, out=run_offs[1:])
-            f.write(native.format_kc(names, *cols, run_offs))
-            write_sec += time.perf_counter() - tw
+            nonlocal num_reads, num_redo_host
+            with tracing.span("fetch.wait"):
+                rc, rs, rl, ovf = handle.numpy()
+                rc, rs, rl = (rc[:n].view(np.uint32), rs[:n].view(np.uint16),
+                              rl[:n].view(np.uint16))
+            with tracing.span("redo"):
+                valid = rc != np.uint32(INVALID_U32)
+                redo = np.flatnonzero((lens > MAX_STREAM_WIDTH) | ovf[:n])
+                if len(redo):
+                    rows = self._redo_rows(query_path, qid0, chunk, lens, redo)
+                    done = self._device_kc_resolve(
+                        rows, self._device_kc_dispatch(rows))
+                    left = [i for i, d in enumerate(done) if d is None]
+                    for i, c in zip(left, self._host_csids_many(
+                            [rows[i] for i in left])):
+                        t = np.array(conservation_runs(c != INVALID_U32, c),
+                                     dtype=np.int64).reshape(-1, 3)
+                        done[i] = (t[:, 0], t[:, 1], t[:, 2])
+                    num_redo_host += len(left)
+                    redo_ids.extend((qid0 + redo).tolist())
+                    valid[redo] = False
+            with tracing.span("write"):
+                counts = valid.sum(axis=1)
+                cols = [rs[valid], rl[valid], rc[valid]]
+                if len(redo):
+                    # the redone reads' runs go where their rows' would have
+                    at = np.repeat(np.cumsum(counts)[redo] - counts[redo],
+                                   [len(d[0]) for d in done])
+                    cols = [np.insert(a.astype(np.uint32), at, np.concatenate(
+                        [d[x] for d in done]).astype(np.uint32))
+                        for x, a in enumerate(cols)]
+                    counts[redo] = [len(d[0]) for d in done]
+                run_offs = np.zeros(n + 1, dtype=np.int64)
+                np.cumsum(counts, out=run_offs[1:])
+                f.write(native.format_kc(names, *cols, run_offs))
             num_reads += n
 
         try:
-            total, parse_sec = self._stream(query_path, dispatch, consume,
-                                            need_names=True)
+            total = self._stream(query_path, dispatch, consume,
+                                 need_names=True)
         finally:
             f.close()
-        stats = dict(num_reads=num_reads, num_reads_total=total,
-                     parse_sec=parse_sec, query_sec=query_sec,
-                     write_sec=write_sec, num_redo=len(redo_ids),
-                     redo_ids=redo_ids, num_redo_host=num_redo_host,
-                     redo_sec=redo_sec, elapsed=time.perf_counter() - t0)
-        if verbose:
-            print(f"kmer-conservation of {num_reads} reads in "
-                  f"{stats['elapsed']:.3f} s: parse {parse_sec:.3f}s query "
-                  f"{query_sec:.3f}s redo {redo_sec:.3f}s ({len(redo_ids)} "
-                  f"reads, {num_redo_host} on the host) write "
-                  f"{write_sec:.3f}s")
-        return stats
+        return dict(num_reads=num_reads, num_reads_total=total,
+                    num_redo=len(redo_ids), redo_ids=redo_ids,
+                    num_redo_host=num_redo_host)
 
     @on_its_card
     def kmer_matches_file(self, query_path: str, out_path: str,
@@ -1768,15 +1834,23 @@ class QueryEngine:
         and, per colour, how many positive windows hold it. Reads in probe
         overflow re-probe at the redo budget with K5 on the card; reads
         still in overflow and every read over MAX_STREAM_WIDTH bases take
-        the exact host mirror. -> stats dict."""
+        the exact host mirror. -> stats dict (as kmer_conservation_file's)."""
+        with tracing.job() as tot:
+            stats = self._kmer_matches(query_path, out_path)
+        stats.update(self._stage_stats(tot))
+        if verbose:
+            self._print_inline_stats("kmer-matches", stats)
+        return stats
+
+    def _kmer_matches(self, query_path, out_path) -> dict:
+        """kmer_matches_file inside its job; spans as
+        _kmer_conservation's."""
         from ..native import lib as native
 
         C = self.idx.num_colors
-        t0 = time.perf_counter()
         f = open(out_path, "wb", buffering=1 << 20)
         f.write(f"num_colors={C}\n".encode())
         num_reads = 0
-        query_sec = redo_sec = write_sec = 0.0
         redo_ids: list = []
         num_redo_host = 0
 
@@ -1789,69 +1863,58 @@ class QueryEngine:
                 num_colors=C, dparams=self.dparams, probe_budget=self._pb))
 
         def consume(qid0, n, lens, names, handle, chunk):
-            nonlocal num_reads, query_sec, redo_sec, write_sec, num_redo_host
-            tq = time.perf_counter()
-            hitw, counts, ovf = handle.numpy()
-            hitw = hitw[:n].view(np.uint32)
-            counts = counts[:n, :C].view(np.uint16)  # a mesh's pad colours
-            widths = np.maximum(0, lens.astype(np.int64) - self.k + 1
-                                ).astype(np.int32)
-            tr = time.perf_counter()
-            query_sec += tr - tq
+            nonlocal num_reads, num_redo_host
+            with tracing.span("fetch.wait"):
+                hitw, counts, ovf = handle.numpy()
+                hitw = hitw[:n].view(np.uint32)
+                counts = counts[:n, :C].view(np.uint16)  # a mesh's pad colours
+                widths = np.maximum(0, lens.astype(np.int64) - self.k + 1
+                                    ).astype(np.int32)
             # fulgor_tpu redoes only reads whose window count passes the
             # fetched words (engine.py:1767-1769), which lets a read of
             # MAX_STREAM_WIDTH + 1 .. + 32 - (k - 1) bases through truncated;
             # here every read over the ladder takes the exact path
-            redo = np.flatnonzero((lens > MAX_STREAM_WIDTH) | ovf[:n])
-            exact = {}
-            if len(redo):
-                rows = self._redo_rows(query_path, qid0, chunk, lens, redo)
-                done = self._device_km_resolve(
-                    rows, self._device_km_dispatch(rows))
-                hitw, counts = hitw.copy(), counts.copy()
-                left = []
-                for i, (j, d) in enumerate(zip(redo, done)):
-                    if d is None:
-                        left.append(i)
-                        continue
-                    hitw[j] = 0
-                    hitw[j, : len(d[0])] = d[0]
-                    counts[j] = d[1]
-                for i, c in zip(left, self._host_csids_many(
-                        [rows[i] for i in left])):
-                    exact[int(redo[i])] = c
-                num_redo_host += len(left)
-                redo_ids.extend((qid0 + redo).tolist())
-            tw = time.perf_counter()
-            redo_sec += tw - tr
-            seg = 0
-            for j in sorted(exact) + [n]:
-                if j > seg:
-                    f.write(native.format_km(names[seg:j], hitw[seg:j],
-                                             widths[seg:j], counts[seg:j]))
-                if j < n:
-                    f.write(self._km_record(names[j], exact[j]))
-                seg = j + 1
-            write_sec += time.perf_counter() - tw
+            with tracing.span("redo"):
+                redo = np.flatnonzero((lens > MAX_STREAM_WIDTH) | ovf[:n])
+                exact = {}
+                if len(redo):
+                    rows = self._redo_rows(query_path, qid0, chunk, lens, redo)
+                    done = self._device_km_resolve(
+                        rows, self._device_km_dispatch(rows))
+                    hitw, counts = hitw.copy(), counts.copy()
+                    left = []
+                    for i, (j, d) in enumerate(zip(redo, done)):
+                        if d is None:
+                            left.append(i)
+                            continue
+                        hitw[j] = 0
+                        hitw[j, : len(d[0])] = d[0]
+                        counts[j] = d[1]
+                    for i, c in zip(left, self._host_csids_many(
+                            [rows[i] for i in left])):
+                        exact[int(redo[i])] = c
+                    num_redo_host += len(left)
+                    redo_ids.extend((qid0 + redo).tolist())
+            with tracing.span("write"):
+                seg = 0
+                for j in sorted(exact) + [n]:
+                    if j > seg:
+                        f.write(native.format_km(names[seg:j], hitw[seg:j],
+                                                 widths[seg:j],
+                                                 counts[seg:j]))
+                    if j < n:
+                        f.write(self._km_record(names[j], exact[j]))
+                    seg = j + 1
             num_reads += n
 
         try:
-            total, parse_sec = self._stream(query_path, dispatch, consume,
-                                            need_names=True)
+            total = self._stream(query_path, dispatch, consume,
+                                 need_names=True)
         finally:
             f.close()
-        stats = dict(num_reads=num_reads, num_reads_total=total,
-                     parse_sec=parse_sec, query_sec=query_sec,
-                     write_sec=write_sec, num_redo=len(redo_ids),
-                     redo_ids=redo_ids, num_redo_host=num_redo_host,
-                     redo_sec=redo_sec, elapsed=time.perf_counter() - t0)
-        if verbose:
-            print(f"kmer-matches of {num_reads} reads in "
-                  f"{stats['elapsed']:.3f} s: parse {parse_sec:.3f}s query "
-                  f"{query_sec:.3f}s redo {redo_sec:.3f}s ({len(redo_ids)} "
-                  f"reads, {num_redo_host} on the host) write "
-                  f"{write_sec:.3f}s")
-        return stats
+        return dict(num_reads=num_reads, num_reads_total=total,
+                    num_redo=len(redo_ids), redo_ids=redo_ids,
+                    num_redo_host=num_redo_host)
 
     def _redo_rows(self, query_path, qid0, chunk, lens, js) -> list:
         """Codes of batch rows js: from the chunk, or re-parsed from the
@@ -1882,9 +1945,54 @@ class QueryEngine:
               f"redo {stats['redo_sec']:.3f}s ({stats['num_redo']} reads, "
               f"{stats['num_redo_host']} on the host) "
               f"write {stats['write_sec']:.3f}s")
+        QueryEngine._print_split(stats)
         # the card's kernels this process launched so far (none on the CPU)
         from ..ops import kernels
 
         launched = {k: v for k, v in kernels.launches.items() if v}
         if launched:
             print(f"kernel launches in this process {launched}")
+
+    @staticmethod
+    def _print_split(stats):
+        """One line of the job's stage split (tracing spans and counters):
+        the engine's construction and its parts (in its first job only),
+        the main thread's dispatch, rows and waits on the parser and the
+        writer, the redo's parts, the host AND and the key cache, the
+        parser's hand-off, the writer's formatting, emitting and bytes,
+        and system and user CPU and minor page faults by thread (the rest
+        of the process's is the native library's OpenMP and std::thread
+        pools and any other thread of the process)."""
+        def g(key):
+            return stats.get(key, 0)
+
+        engine = (f"engine {g('engine_init_sec'):.3f}s (decode "
+                  f"{g('engine_decode_sec'):.3f}s budget "
+                  f"{g('engine_budget_sec'):.3f}s tables "
+                  f"{g('engine_tables_sec'):.3f}s); "
+                  if "engine_init_sec" in stats else "")
+        cpu = " ".join(
+            f"{who} {g('sys_ns' + sfx) / 1e9:.3f}/"
+            f"{g('user_ns' + sfx) / 1e9:.3f}s {g('minflt' + sfx)}"
+            for who, sfx in (("process", ""), ("main", "_main"),
+                             ("parse", "_parse"), ("writer", "_writer")))
+        print(f"stage split: {engine}dispatch {g('dispatch_sec'):.3f}s rows "
+              f"{g('rows_sec'):.3f}s parse wait {g('parse_wait_sec'):.3f}s "
+              f"write wait {g('write_put_sec') + g('write_close_sec'):.3f}s;"
+              f" redo reprobe {g('redo_reprobe_sec'):.3f}s mirror "
+              f"{g('redo_mirror_sec'):.3f}s lists {g('redo_lists_sec'):.3f}s"
+              f" reparse {g('redo_reparse_sec'):.3f}s; AND "
+              f"{g('colour_and_sec'):.3f}s key hits {g('key_hits')}/"
+              f"{g('key_lookups')}; parse put {g('parse_put_sec'):.3f}s; "
+              f"format {g('write_format_sec'):.3f}s emit "
+              f"{g('write_emit_sec'):.3f}s {g('write_bytes')} bytes; "
+              f"system/user CPU, minor faults: {cpu}")
+
+    @staticmethod
+    def _print_inline_stats(tool, stats):
+        """kmer-conservation's and kmer-matches' --verbose line."""
+        print(f"{tool} of {stats['num_reads']} reads in "
+              f"{stats['elapsed']:.3f} s: parse {stats['parse_sec']:.3f}s "
+              f"query {stats['query_sec']:.3f}s redo {stats['redo_sec']:.3f}s"
+              f" ({stats['num_redo']} reads, {stats['num_redo_host']} on the "
+              f"host) write {stats['write_sec']:.3f}s")

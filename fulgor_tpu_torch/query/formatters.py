@@ -7,12 +7,17 @@ Formats:
                8-byte-aligned bitstream] of per-result records
                delta(qid) delta(n) hybrid-style payload. Bit codes are ours
                (core/bitsx.py), framing mirrors the reference.
+
+The ascii writers time the native formatting as the tracing span
+`write.format` and the file's write as `write.emit` (native/lib.py), and
+count the bytes formatted (`write_bytes`).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from .. import tracing
 from ..core.bitsx import BitWriter
 from ..core.hybrid import thresholds
 
@@ -47,9 +52,13 @@ class AsciiFormatter:
             while j < len(qarr) and offs[j + 1] - base <= MAXC:
                 j += 1
             j = max(j, i + 1)
-            self.f.write(native.format_psa_ascii(
-                qarr[i:j], cat[offs[i]: offs[j]],
-                (offs[i: j + 1] - offs[i]).astype(np.int64)))
+            with tracing.span("write.format"):
+                block = native.format_psa_ascii(
+                    qarr[i:j], cat[offs[i]: offs[j]],
+                    (offs[i: j + 1] - offs[i]).astype(np.int64))
+            tracing.count("write_bytes", len(block))
+            with tracing.span("write.emit"):
+                self.f.write(block)
             i = j
 
     def write_batch_bits(self, qids: np.ndarray, bits: np.ndarray) -> int:
