@@ -713,16 +713,16 @@ class QueryEngine:
                 dparams=self.dparams, probe_budget=self._pb_redo)))
 
     def _device_tu_resolve(self, rows, state) -> list:
-        """Collect a _device_tu_dispatch state: each read's TU colour list,
-        or None for reads the device cannot decide (overflow, too long)."""
+        """Collect a _device_tu_dispatch state: each read's (C32,) u32 TU
+        mask row (a mesh's pad words cut), or None for reads the device
+        cannot decide (overflow, too long)."""
         out: list = [None] * len(rows)
         for sel, handle in state:
             bits, ovf = handle.numpy()
             ok = np.flatnonzero(~ovf[: len(sel)])
-            lists, _ = self._bits_to_lists(bits[ok].view(np.uint32),
-                                           self.idx.num_colors)
-            for j, cols in zip(ok, lists):
-                out[sel[j]] = cols
+            mask = bits[ok, : self.idx.words_per_set].view(np.uint32)
+            for j, row in zip(ok, mask):
+                out[sel[j]] = row
         return out
 
     def _device_km_dispatch(self, rows) -> list:
@@ -788,6 +788,75 @@ class QueryEngine:
                     out[i] = vals[j, : max(0, len(rows[i]) - self.k + 1)]
         return out
 
+    def _device_fi_resolve(self, rows, state) -> list:
+        """Collect a _device_csids_dispatch state as FI rows: each read's
+        (C32,) u32 row, or None for reads the device cannot decide (probe
+        overflow, too long). A dispatch batch's decided reads take one sort
+        and one segmented AND (_fi_rows_from_csid_matrix). Spans: the fetch
+        as `redo.reprobe`, csids to rows as `redo.lists`."""
+        out: list = [None] * len(rows)
+        for sel, handle in state:
+            with tracing.span("redo.reprobe"):
+                hit, csid, ovf = handle.numpy()
+            with tracing.span("redo.lists"):
+                ok = np.flatnonzero(~ovf[: len(sel)].any(axis=1))
+                idx = [sel[j] for j in ok]
+                vals = np.where(hit[ok], csid[ok].view(np.uint32),
+                                np.uint32(INVALID_U32))
+                wlim = np.array([len(rows[i]) - self.k + 1 for i in idx],
+                                dtype=np.int64).clip(0)
+                for i, row in zip(idx, self._fi_rows_from_csid_matrix(
+                        vals, wlim)):
+                    out[i] = row
+        return out
+
+    def _lists_to_rows(self, lists) -> np.ndarray:
+        """Colour lists -> (len(lists), C32) u32 bit rows."""
+        from ..native import lib as native
+
+        res = np.zeros((len(lists), self.idx.words_per_set), dtype=np.uint32)
+        sizes = [len(c) for c in lists]
+        if sum(sizes):
+            native.or_bits_at(res, np.repeat(np.arange(len(lists)), sizes),
+                              np.concatenate(lists).astype(np.int64))
+        return res
+
+    def _redo_pool_rows(self, rows, state, threshold, tu_dense: bool):
+        """A redo pool's results as (len(rows), C32) u32 bit rows in pool
+        order -> (rows, reads the host mirror decided). The card decides
+        what it can: FI rows from the re-probe's csids (_device_fi_resolve),
+        TU rows from K4 (tu_dense), else (TU with no dense matrix) per-read
+        csids; the rest take the exact host mirror. Spans: `redo.reprobe`
+        (the re-probe's results collected), `redo.mirror`, `redo.lists`
+        (csids or colour lists to rows)."""
+        if threshold is None:
+            done = self._device_fi_resolve(rows, state)
+        else:
+            with tracing.span("redo.reprobe"):
+                done = (self._device_tu_resolve(rows, state) if tu_dense
+                        else self._device_csids_resolve(rows, state))
+        left = [i for i, c in enumerate(done) if c is None]
+        with tracing.span("redo.mirror"):
+            host = self._host_csids_many([rows[i] for i in left])
+            if tu_dense:
+                host = [self._tu_from_csids(c, threshold) for c in host]
+        with tracing.span("redo.lists"):
+            if threshold is not None and not tu_dense:
+                # every read's csids scored on the host
+                for i, c in zip(left, host):
+                    done[i] = c
+                return self._lists_to_rows([self._tu_from_csids(
+                    c, threshold) for c in done]), len(left)
+            res = np.zeros((len(rows), self.idx.words_per_set),
+                           dtype=np.uint32)
+            dec = [i for i, c in enumerate(done) if c is not None]
+            if dec:
+                res[dec] = np.stack([done[i] for i in dec])
+            if left:
+                res[left] = (self._lists_to_rows(host) if tu_dense
+                             else self._fi_rows_from_csids_many(host))
+        return res, len(left)
+
     def _fi_from_csids(self, csids: np.ndarray) -> np.ndarray:
         cat, offs = self._cs_cache
         distinct = np.unique(csids[csids != INVALID_U32])
@@ -805,10 +874,14 @@ class QueryEngine:
         """Exact FI colour lists for many reads from their window csids
         (INVALID = negative window): the AND of each read's distinct
         csids' colour rows."""
+        return self._bits_to_lists(self._fi_rows_from_csids_many(csids_list),
+                                   self.idx.num_colors)[0]
+
+    def _fi_rows_from_csids_many(self, csids_list: list) -> np.ndarray:
+        """_fi_lists_from_csids_many's result as (n, C32) u32 rows."""
         keys = [np.unique(c[c != INVALID_U32]).astype(np.uint32).tobytes()
                 for c in map(np.asarray, csids_list)]
-        return self._bits_to_lists(self._fi_rows_from_keys(keys),
-                                   self.idx.num_colors)[0]
+        return self._fi_rows_from_keys(keys)
 
     def _fi_rows_from_keys(self, keys: list) -> np.ndarray:
         """keys: sorted distinct csids as u32 bytes -> (len(keys), C32) u32,
@@ -1322,8 +1395,9 @@ class QueryEngine:
         colour step; the runs fetch's children `colour.overflow`,
         `colour.keys`, `colour.cache`, `colour.and`, with counters
         `key_lookups` and `key_hits`), `redo` (children `redo.reparse`,
-        `redo.reprobe`, `redo.mirror`, `redo.lists`), and the writer's
-        `write.put` and `write.close` where they block."""
+        `redo.reprobe`, `redo.mirror`, `redo.lists`; counter
+        `redo_row_reads`, the redone reads written as bit rows), and the
+        writer's `write.put` and `write.close` where they block."""
         C = self.idx.num_colors
         fmtr = AsyncWriter(make_formatter(fmt, out_path, C))
         num_reads = num_run_ovf = 0
@@ -1374,7 +1448,8 @@ class QueryEngine:
         # Deferred redo: overflow and over-long reads wait here as (read id,
         # codes | None = re-parse) and are resolved redo_flush at a time. A
         # flush launches the device re-probe and the pool is written one
-        # flush later (or at the end), pools strictly in order: into the
+        # flush later (or at the end), pools strictly in order, as bit rows
+        # where the sink formats them (else as colour lists): into the
         # output, or under a shard into the side fragment (created at its
         # first write)
         deferred: list = []
@@ -1420,24 +1495,17 @@ class QueryEngine:
                         else self._device_csids_dispatch(rows))))
             while pending_redo and (final or len(pending_redo) >= 2):
                 ids, rows, state = pending_redo.popleft()
-                # TU with K4: colour lists; else per-read csids
-                with tracing.span("redo.reprobe"):
-                    done = (self._device_tu_resolve(rows, state) if tu_dense
-                            else self._device_csids_resolve(rows, state))
-                left = [i for i, c in enumerate(done) if c is None]
-                with tracing.span("redo.mirror"):
-                    for i, c in zip(left, self._host_csids_many(
-                            [rows[i] for i in left])):
-                        done[i] = (self._tu_from_csids(c, threshold)
-                                   if tu_dense else c)
-                num_redo_host += len(left)
-                with tracing.span("redo.lists"):
-                    if threshold is None:
-                        done = self._fi_lists_from_csids_many(done)
-                    elif not tu_dense:
-                        done = [self._tu_from_csids(c, threshold)
-                                for c in done]
-                redo_sink().write_batch(ids, done)
+                res, host = self._redo_pool_rows(rows, state, threshold,
+                                                 tu_dense)
+                num_redo_host += host
+                sink = redo_sink()
+                if sink.has_bits:
+                    sink.write_batch_bits(np.asarray(ids, np.uint32), res)
+                else:
+                    sink.write_batch(ids, self._bits_to_lists(res, C)[0])
+                # the redone reads handed to the writer as rows
+                tracing.count("redo_row_reads", len(ids) if sink.has_bits
+                              else 0)
                 redo_ids.extend(ids)
 
         def write_rows(qid0, n, lens, chunk, rows, keep):
@@ -1958,11 +2026,12 @@ class QueryEngine:
         """One line of the job's stage split (tracing spans and counters):
         the engine's construction and its parts (in its first job only),
         the main thread's dispatch, rows and waits on the parser and the
-        writer, the redo's parts, the host AND and the key cache, the
-        parser's hand-off, the writer's formatting, emitting and bytes,
-        and system and user CPU and minor page faults by thread (the rest
-        of the process's is the native library's OpenMP and std::thread
-        pools and any other thread of the process)."""
+        writer, the redo's parts and its reads written as rows, the host
+        AND and the key cache, the parser's hand-off, the writer's
+        formatting, emitting and bytes, and system and user CPU and minor
+        page faults by thread (the rest of the process's is the native
+        library's OpenMP and std::thread pools and any other thread of the
+        process)."""
         def g(key):
             return stats.get(key, 0)
 
@@ -1981,7 +2050,8 @@ class QueryEngine:
               f"write wait {g('write_put_sec') + g('write_close_sec'):.3f}s;"
               f" redo reprobe {g('redo_reprobe_sec'):.3f}s mirror "
               f"{g('redo_mirror_sec'):.3f}s lists {g('redo_lists_sec'):.3f}s"
-              f" reparse {g('redo_reparse_sec'):.3f}s; AND "
+              f" reparse {g('redo_reparse_sec'):.3f}s, "
+              f"{g('redo_row_reads')} reads as rows; AND "
               f"{g('colour_and_sec'):.3f}s key hits {g('key_hits')}/"
               f"{g('key_lookups')}; parse put {g('parse_put_sec'):.3f}s; "
               f"format {g('write_format_sec'):.3f}s emit "

@@ -135,11 +135,61 @@ def test_pseudoalign_matches_reference(corpus, tmp_path, fmt):
     assert len(got[57]) > 0  # the long read maps through the host path
 
 
-@pytest.mark.parametrize("redo", ["device", "host"])
-def test_forced_overflow_takes_redo(corpus, tmp_path, monkeypatch, redo):
+def redo_cases():
+    """(redo, fmt) for the forced-overflow tests: the ascii cases keep the
+    ids they had before the output format was a parameter."""
+    return [pytest.param(redo, fmt, id=redo if fmt == "ascii"
+                         else f"{redo}-{fmt}")
+            for fmt in FORMATS for redo in ("device", "host")]
+
+
+def watch_redo_sink(monkeypatch):
+    """Record the read ids the writer takes as bit rows and as colour
+    lists, and count _bits_to_lists calls. -> (ids by method, calls)."""
+    seen = {"write_batch_bits": [], "write_batch": []}
+    calls = {"bits_to_lists": 0}
+    W = E.AsyncWriter
+    real_bits, real_lists = W.write_batch_bits, W.write_batch
+    to_lists = E.QueryEngine._bits_to_lists
+
+    def bits(self, ids, rows):
+        seen["write_batch_bits"].extend(int(q) for q in ids)
+        return real_bits(self, ids, rows)
+
+    def lists(self, ids, cols):
+        ids = list(ids)
+        seen["write_batch"].extend(int(q) for q in ids)
+        return real_lists(self, ids, cols)
+
+    def count(bits_np, num_colors):
+        calls["bits_to_lists"] += 1
+        return to_lists(bits_np, num_colors)
+
+    monkeypatch.setattr(W, "write_batch_bits", bits)
+    monkeypatch.setattr(W, "write_batch", lists)
+    monkeypatch.setattr(E.QueryEngine, "_bits_to_lists", staticmethod(count))
+    return seen, calls
+
+
+def check_redo_sink(stats, fmt, seen, calls):
+    """A redo pool reaches an ascii writer as bit rows, never expanded to
+    colour lists; binary and compressed writers take lists."""
+    redone = set(stats["redo_ids"])
+    if fmt == "ascii":
+        assert redone <= set(seen["write_batch_bits"])
+        assert not seen["write_batch"] and calls["bits_to_lists"] == 0
+        assert stats["redo_row_reads"] == stats["num_redo"]
+    else:
+        assert redone <= set(seen["write_batch"])
+        assert stats["redo_row_reads"] == 0
+
+
+@pytest.mark.parametrize("redo,fmt", redo_cases())
+def test_forced_overflow_takes_redo(corpus, tmp_path, monkeypatch, redo, fmt):
     """Probe budget (1, 1) overflows many reads; they take the deferred
     device redo at (8, 4), and with a (1, 1) redo budget the lanes still in
-    overflow take the exact host mirror. The output is unchanged."""
+    overflow take the exact host mirror. The output is unchanged in every
+    format; an ascii writer takes the redo's bit rows."""
     tmp, qfile, refs, n = corpus
     monkeypatch.setenv("FULGOR_PROBE_BUDGET", "1,1")
     calls = {"device": 0, "host": 0}
@@ -161,12 +211,14 @@ def test_forced_overflow_takes_redo(corpus, tmp_path, monkeypatch, redo):
     assert eng._pb == (1, 1) and eng._pb_redo == E.REDO_BUDGET
     if redo == "host":
         monkeypatch.setattr(eng, "_pb_redo", (1, 1))
-    out = str(tmp_path / "out.tsv")
-    stats = eng.pseudoalign_file(qfile, out)
-    assert _records(out, "ascii") == refs["ascii"]
+    seen, lists_calls = watch_redo_sink(monkeypatch)
+    out = str(tmp_path / f"out.{fmt}")
+    stats = eng.pseudoalign_file(qfile, out, fmt=fmt)
+    assert _records(out, fmt) == refs[fmt]
     assert stats["num_redo"] > 4 and calls["device"] >= 1
     # the long read always ends on the host; a (1, 1) redo leaves more
     assert calls["host"] > (1 if redo == "host" else 0)
+    check_redo_sink(stats, fmt, seen, lists_calls)
 
 
 def test_selfcheck_compares_with_host_mirror(corpus, tmp_path, monkeypatch):

@@ -339,3 +339,29 @@ def test_tuning_variables_reach_the_port(wide, tmp_path, monkeypatch, var):
                               "--batch-size", str(BATCH)]) == 0
         got, want = sorted_records(outs[1]), sorted_records(outs[0])
         assert got == want and len(got) == NUM_READS
+
+
+@pytest.mark.parametrize("mode,tool", [("runs", "fi"), ("nodense", "tu0.8")])
+@pytest.mark.parametrize("redo", ["device", "host"])
+def test_forced_redo_writes_bit_rows(wide, tmp_path, monkeypatch, mode, tool,
+                                     redo):
+    """Forced probe overflow (budget (1, 1)) on sal4546.fi's path, the runs
+    fetch, and on the no-dense TU: the overflowed reads take the (8, 4)
+    device redo (with a (1, 1) redo budget, the host mirror too) and reach
+    the ascii writer as bit rows. The file equals fulgor_tpu's byte for
+    byte."""
+    monkeypatch.setenv("FULGOR_PROBE_BUDGET", "1,1")
+    jeng, teng = engines(wide, monkeypatch, 0 if mode == "nodense" else None)
+    assert teng.use_runs_fetch and teng._pb == (1, 1)
+    assert teng.use_tu_runs == (mode == "nodense")
+    if redo == "host":
+        monkeypatch.setattr(teng, "_pb_redo", (1, 1))
+    kw = {} if tool == "fi" else {"threshold": float(tool[2:])}
+    out_j, out_t = str(tmp_path / "j.tsv"), str(tmp_path / "t.tsv")
+    jeng.pseudoalign_file(wide[2], out_j, **kw)
+    st = teng.pseudoalign_file(wide[2], out_t, **kw)
+    with open(out_j, "rb") as fj, open(out_t, "rb") as ft:
+        assert ft.read() == fj.read()
+    assert st["num_redo"] > NUM_READS // 4
+    assert st["redo_row_reads"] == st["num_redo"]
+    assert (st["num_redo_host"] > 0) == (redo == "host")

@@ -105,6 +105,7 @@ def test_stage_keys_hold_their_children(recorded):
     st = recorded[0][0]
     assert PSA_KEYS <= set(st)
     assert st["num_redo"] > 0 and st["num_redo_host"] > 0
+    assert st["redo_row_reads"] == st["num_redo"]  # ascii takes bit rows
     assert st["host_sec"] >= st["colour_and_sec"] > 0
     parts = (st["redo_reprobe_sec"] + st["redo_mirror_sec"]
              + st["redo_lists_sec"])
@@ -183,6 +184,7 @@ def test_verbose_prints_the_split(recorded, capsys):
                  "mirror", "lists", "AND", "key hits", "parse put", "format",
                  "emit", "bytes", "process", "main", "writer"):
         assert word in lines[1]
+    assert f"{second['redo_row_reads']} reads as rows" in lines[1]
     assert f"{second['write_bytes']} bytes" in lines[1]
     assert (f"writer {second['sys_ns_writer'] / 1e9:.3f}/"
             f"{second['user_ns_writer'] / 1e9:.3f}s "

@@ -30,7 +30,8 @@ from fulgor_tpu_torch.index import Index as TIndex
 from fulgor_tpu_torch.ops import pipeline as TP
 from fulgor_tpu_torch.ops.hostpack import pack_reads_host
 from fulgor_tpu_torch.query import engine as E
-from tests.test_torch_engine import FORMATS, _records, corpus  # noqa: F401
+from tests.test_torch_engine import (  # noqa: F401
+    FORMATS, _records, check_redo_sink, corpus, redo_cases, watch_redo_sink)
 from tests.test_torch_threads import one_thread  # noqa: F401
 
 TU_CASES = [(0.8, f) for f in FORMATS] + [(0.5, "ascii"), (1.0, "ascii")]
@@ -94,12 +95,14 @@ def test_threshold_must_be_in_range(corpus):
                    "-o", "unused", "-r", "0", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("redo", ["device", "host"])
+@pytest.mark.parametrize("redo,fmt", redo_cases())
 def test_tu_forced_overflow_takes_redo(corpus, refs, tmp_path, monkeypatch,
-                                       redo):
+                                       redo, fmt):
     """Probe budget (1, 1) under -r 0.8: overflow reads re-probe at (8, 4)
     and take K4 (its plain version here) on the re-probe's outputs; with a
-    (1, 1) redo budget the reads still in overflow take the host mirror."""
+    (1, 1) redo budget the reads still in overflow take the host mirror.
+    The output is unchanged in every format; an ascii writer takes the
+    redo's bit rows."""
     tmp, qfile, _refs, _n = corpus
     monkeypatch.setenv("FULGOR_PROBE_BUDGET", "1,1")
     calls = {"device": 0, "host": 0}
@@ -120,14 +123,16 @@ def test_tu_forced_overflow_takes_redo(corpus, refs, tmp_path, monkeypatch,
                         device="cpu")
     if redo == "host":
         monkeypatch.setattr(eng, "_pb_redo", (1, 1))
-    out = str(tmp_path / "out.tsv")
-    stats = eng.pseudoalign_file(qfile, out, threshold=0.8)
-    assert _records(out, "ascii") == refs[0][0.8, "ascii"]
+    seen, lists_calls = watch_redo_sink(monkeypatch)
+    out = str(tmp_path / f"out.{fmt}")
+    stats = eng.pseudoalign_file(qfile, out, threshold=0.8, fmt=fmt)
+    assert _records(out, fmt) == refs[0][0.8, fmt]
     assert calls["device"] >= 1 and calls["host"] == stats["num_redo_host"]
     if redo == "device":  # only the long read needs the host
         assert stats["num_redo"] > 4 and stats["num_redo_host"] == 1
     else:
         assert stats["num_redo_host"] > 1
+    check_redo_sink(stats, fmt, seen, lists_calls)
 
 
 def test_selfcheck_under_threshold(corpus, refs, tmp_path, monkeypatch):
